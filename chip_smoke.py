@@ -11,17 +11,23 @@ which raises on failure (the script then exits non-zero):
 2. build: the CUDA kernels (nvcc) and the native host core (make) from the
    sources in the checkout, in parallel;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   on the inputs the main path gives it (the LF groups of the two streams
+   on the inputs the main path gives it (the LF groups of the streams
    below), its device time beside its plain version's, a library
    yardstick's and its bound;
 4. main path: the BASELINE VarDCT configs 3 (1024x1024, all DCT8) and 4
    (4096x3072 mixed varblocks, custom orders and dequant matrices), made
    from a seed by the port's encoder, decoded by `decode_file(data,
    workers=4)` on the card and held within 1 gray level of the port's host
-   plan (`backend="numpy"`); the kernel launch counters show which kernels
-   the decode went through;
-5. profile: one warm decode of each config under torch.profiler (device
-   busy time and idle share) and cProfile (host time by function).
+   plan (`backend="numpy"`); then the restoration-filter path,
+   `Decoder(data, apply_filters=True, workers=4)`, on config 12F (config
+   4's image, all DCT8, custom gaborish and 3-step EPF) and on config 4,
+   each held against the host plan with the same filters; then the
+   whole-plane EPF of a plane whose sides are not multiples of 8
+   (`filter_kernels.epf_device`, the single-step kernel).  The kernel launch
+   counters, zeroed just before each path and read just after, show which
+   kernels each went through;
+5. profile: one warm decode of configs 3, 4 and 12F under torch.profiler
+   (device busy time and idle share) and cProfile (host time by function).
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the card's name and power limit; before that one {"kernels": [...]} line.
@@ -79,6 +85,23 @@ def config4() -> bytes:
         img, options=VarDCTOptions(custom_order=True, custom_dq=True))
 
 
+def config12f() -> bytes:
+    """Config 12F: config 4's 4096x3072 image, all DCT8, with custom
+    gaborish weights and the 3-step EPF (12-tap, 4-tap cross, 4-tap plain)
+    at sharpness 5, so that EPF filters every block: 4 LF groups."""
+    from j40_tpu_torch.encode.vardct_enc import VarDCTOptions, encode_vardct
+
+    return encode_vardct(_test_image(4096, 3072, seed=777), VarDCTOptions(
+        sharpness=5, custom_restoration=True, epf_iters=3))
+
+
+# bench.py _bench_device_filters' EPF parameters, for the ragged-plane path
+RAGGED_EPF = dict(iters=3, channel_scale=(40.0, 5.0, 3.5), p0_scale=0.9,
+                  p2_scale=6.5, border_sad_mul=2.78)
+# filter kernels against their plain versions on XYB planes (phase 3)
+XYB_ATOL = 1e-5
+
+
 def device_ms(fn) -> float:
     """Median device time per call of `fn` over REPS calls after warm-up:
     the summed durations of the CUDA kernels it launches, as CUPTI records
@@ -92,20 +115,28 @@ def device_ms(fn) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    # a profiling session now and then receives no device records at all
-    # (seen once in four runs, on cuBLAS's matmul); such a session is
-    # profiled again, up to three times in all
+    # a session may lose its first device record (29 of 30, three sessions
+    # running, on one kernel per call), so each session makes 2 more calls
+    # first, takes the kernels per call as the records over the calls
+    # rounded up, and times the last REPS calls' records.  A session with
+    # no device records (seen once, on cuBLAS's matmul) or more than one
+    # lost is profiled again, up to three times in all
+    calls_made = REPS + 2
+    seen = []
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(REPS):
+            for _ in range(calls_made):
                 fn()
             torch.cuda.synchronize()
         spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                        if e.device_type == DeviceType.CUDA)
-        if spans:
+        seen.append(len(spans))
+        per = -(-len(spans) // calls_made)
+        if spans and len(spans) >= per * calls_made - 1:
             break
-    assert spans and len(spans) % REPS == 0, f"{len(spans)} kernels in {REPS} calls"
-    per = len(spans) // REPS
+    assert spans and len(spans) >= per * calls_made - 1, \
+        f"{seen} kernel records in {calls_made} calls"
+    spans = spans[len(spans) - per * REPS:]
     calls = [sum(b - a for a, b in spans[k * per:(k + 1) * per]) for k in range(REPS)]
     return statistics.median(calls) / 1e3
 
@@ -123,6 +154,47 @@ def dct8_ops(n: int, colour: bool) -> float:
     block and channel), 10 per coefficient for dequant and CfL, 50 per pixel
     for the colour stage (a cbrt or pow counted as one)."""
     return 2 * 2 * 8**3 * 3 * n + 10 * 3 * 64 * n + (50 * 64 * n if colour else 0)
+
+
+def epf_ops(npix: int, kinds) -> float:
+    """Least operations of the EPF steps `kinds` (filter_kernels step kinds:
+    0 = 12-tap cross, 1 = 4-tap cross, 2 = 4-tap plain) over `npix` pixels
+    that are not skipped (a skipped pixel is copied: no operations).
+
+    Per distinct tap and pixel: the channel-weighted distance to the tap's
+    partner, sum_c scale_c * |a_c - b_c| (3 subtractions, 3 absolutes, 3
+    multiplies, 2 adds = 11), computed once per position and shared by the
+    5-point crosses of the neighbours; for the cross kinds the sum over the
+    cross (4 adds); the weight max(0, 1 + dist * inv_sigma) (3); its sum (1);
+    the weighted samples of the 3 channels (3 multiplies, 3 adds).  So 25
+    per cross tap and 21 per plain tap.  A tap that the table repeats
+    (KERNELS12 holds 7 distinct taps: (0,-2), (-1,0) and (0,2) twice,
+    (-1,1) three times) has the same distance, weight and sample each
+    time, so its multiplicity costs one multiply of the weight, not another
+    tap.  Per step and pixel: inv_sigma (1 multiply) and the 3 divisions by
+    the weight sum (4).  A 3-step frame is (7*25 + 4 + 4) + (4*25 + 4) +
+    (4*21 + 4) = 375 per pixel.  (Summing each channel's cross before
+    weighting it and visiting every table entry, as the reference and the
+    plain version do, takes 34 per cross tap and 22 per plain tap, 644 per
+    pixel; the kernel also recomputes the shared distances at every
+    pixel.)"""
+    from collections import Counter
+
+    from j40_tpu_torch.ops.filter_kernels import STEP_KERNELS
+
+    total = 0
+    for k in kinds:
+        table, cross = STEP_KERNELS[k]
+        mult = Counter(table).values()
+        total += len(mult) * (25 if cross else 21) + sum(m > 1 for m in mult) + 4
+    return float(npix) * total
+
+
+def active_pixels(rs8: torch.Tensor, h: int, w: int) -> int:
+    """Pixels of an (h, w) plane whose 8x8 block EPF does not skip."""
+    from j40_tpu_torch.ops.filters import rs_per_pixel
+
+    return int((rs_per_pixel(rs8, h, w) >= 0).sum().item())
 
 
 def phase_card() -> dict:
@@ -176,12 +248,12 @@ def phase_build() -> dict:
     return info
 
 
-def group_inputs(data: bytes) -> list[dict]:
+def group_inputs(data: bytes, apply_filters: bool = False) -> list[dict]:
     """The main path's per-LF-group reconstruction inputs (numpy)."""
     from j40_tpu_torch.decode import Decoder
     from j40_tpu_torch.ops.combine import lf_group_inputs
 
-    dec = Decoder(data, backend="numpy")
+    dec = Decoder(data, backend="numpy", apply_filters=apply_filters)
     dec.decode_frame(_defer_finish=True)
     st = dec._deferred[2]
     return [lf_group_inputs(st.vardct, st.vardct.lf_groups[k], st.im)
@@ -269,23 +341,168 @@ def phase_kernels(inp3: dict, inp4: dict, dev) -> list[dict]:
         plain_ms=device_ms(lambda: K.xyb_to_srgb_ref(plane, c22, True)),
         bound_ms=b[0], bound_by=b[1], library_ms=None, library=None,
     ))
+    _print_rows(rows)
+    return rows
+
+
+def _print_rows(rows: list[dict]) -> None:
     for r in rows:
         print(f"kernel {r['name']} [{r['shape']}]: {r['ms']:.4f} ms on the "
               f"device, plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max|err| {r['max_abs_err']}")
+
+
+def ragged_plane(dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """A (3, 1023, 1021) plane of samples of scale 50 and its per-block
+    reciprocal sigmas, seeded as bench.py's _bench_device_filters."""
+    rng = np.random.default_rng(2)
+    ch = rng.normal(size=(3, 1023, 1021)).astype(np.float32) * 50
+    rs8 = (np.abs(rng.normal(size=(128, 128))) + 0.5).astype(np.float32)
+    return torch.from_numpy(ch).to(dev), torch.from_numpy(rs8).to(dev)
+
+
+def ragged_ref(ch, rs8):
+    """The plain version of the ragged-plane EPF: one plain step per step."""
+    from j40_tpu_torch.ops import filter_kernels as FK
+
+    e = RAGGED_EPF
+    for ss, kind in FK.frame_steps(e["iters"], e["p0_scale"], e["p2_scale"]):
+        ch = FK.epf_step_ref(ch, rs8, ss, kind, e["channel_scale"], e["border_sad_mul"])
+    return ch
+
+
+def phase_filter_kernels(inp: dict, dev) -> list[dict]:
+    """The filter kernels vs their plain versions at the main path's shapes:
+    B9 on config 12F's first 2048x2048 LF group's XYB plane, B8 (its 3
+    steps, the group's own sigmas) on B9's output, B7 through epf_device on
+    the ragged plane (three launches, one per step).  Tolerances: 1e-5
+    absolute on the XYB planes, whose samples are of order 1 or less (X
+    about 0.03: a wrong X channel must not pass), fp32 sums in another
+    order giving about 3e-7; 2e-3 absolute on the ragged plane's samples of
+    scale 50 (tests/test_torch_cuda.py)."""
+    import torch.nn.functional as Fn
+
+    from j40_tpu_torch.ops import filter_kernels as FK
+    from j40_tpu_torch.ops.combine import _mixed_xyb, to_device
+
+    d = to_device(inp, dev)
+    filt, epf = d["filters"], d["filters"]["epf"]
+    xyb = _mixed_xyb(d["i8"], d["exc_idx"], d["exc_val"], d["aux"], d["weights"],
+                     d["consts22"], (), (), d["h8"], d["w8"])
+    _, H, W = xyb.shape
+    rows = []
+
+    gab = filt["gab"]
+    got = FK.gaborish(xyb, gab)
+    err = (got - FK.gaborish_ref(xyb, gab)).abs().max().item()
+    assert err <= XYB_ATOL, f"gaborish disagrees: {err}"
+    taps = []
+    for w1, w2 in gab:
+        s = 1.0 + 4 * w1 + 4 * w2
+        taps.append([[w2 / s, w1 / s, w2 / s], [w1 / s, 1.0 / s, w1 / s],
+                     [w2 / s, w1 / s, w2 / s]])
+    wt = torch.tensor(taps, dtype=torch.float32, device=dev)[:, None]
+
+    def conv():
+        return Fn.conv2d(Fn.pad(xyb[None], (1, 1, 1, 1), mode="replicate"), wt,
+                         groups=3)[0]
+
+    assert not torch.backends.cudnn.allow_tf32
+    assert (conv() - got).abs().max().item() <= XYB_ATOL
+    b = bound(2 * xyb.numel() * 4 + 9 * 4, 17 * xyb.numel())
+    rows.append(dict(
+        name="gaborish", route="cuda", source="j40_tpu_torch/csrc/filters.cu",
+        replaces="j40_tpu/ops/pallas_filters.py:161",
+        shape=f"{tuple(xyb.shape)} f32", max_abs_err=err,
+        ms=device_ms(lambda: FK.gaborish(xyb, gab)),
+        plain_ms=device_ms(lambda: FK.gaborish_ref(xyb, gab)),
+        bound_ms=b[0], bound_by=b[1], library_ms=device_ms(conv),
+        library="F.conv2d depthwise 3x3 on a replicate pad (TF32 off)",
+    ))
+
+    plane, rs8 = got, filt["rs8"]
+    steps = FK.frame_steps(epf["iters"], epf["p0_scale"], epf["p2_scale"])
+    args = (plane, rs8, steps, epf["channel_scale"], epf["border_sad_mul"])
+    got = FK.epf_fused(*args)
+    err = (got - FK.epf_fused_ref(*args)).abs().max().item()
+    assert err <= XYB_ATOL, f"epf_fused disagrees: {err}"
+    act = active_pixels(rs8, H, W)
+    b = bound(2 * plane.numel() * 4 + rs8.numel() * 4,
+              epf_ops(act, [k for _, k in steps]))
+    rows.append(dict(
+        name="epf_fused", route="cuda", source="j40_tpu_torch/csrc/filters.cu",
+        replaces="j40_tpu/ops/pallas_filters.py:413",
+        shape=f"{tuple(plane.shape)} f32, steps {[k for _, k in steps]}, "
+              f"{act} of {H * W} pixels filtered", max_abs_err=err,
+        ms=device_ms(lambda: FK.epf_fused(*args)),
+        plain_ms=device_ms(lambda: FK.epf_fused_ref(*args)),
+        bound_ms=b[0], bound_by=b[1], library_ms=None, library=None,
+    ))
+
+    ch, rs8 = ragged_plane(dev)
+    got = FK.epf_device(ch, rs8, **RAGGED_EPF)
+    err = (got - ragged_ref(ch, rs8)).abs().max().item()
+    assert err <= 2e-3, f"epf_step disagrees: {err}"
+    _, H, W = ch.shape
+    kinds = [k for _, k in FK.frame_steps(3, 0.9, 6.5)]
+    b = bound(2 * ch.numel() * 4 + rs8.numel() * 4,
+              epf_ops(active_pixels(rs8, H, W), kinds))
+    rows.append(dict(
+        name="epf_step", route="cuda", source="j40_tpu_torch/csrc/filters.cu",
+        replaces="j40_tpu/ops/pallas_filters.py:82",
+        shape=f"{tuple(ch.shape)} f32, steps {kinds}, one launch each",
+        max_abs_err=err,
+        ms=device_ms(lambda: FK.epf_device(ch, rs8, **RAGGED_EPF)),
+        plain_ms=device_ms(lambda: ragged_ref(ch, rs8)),
+        bound_ms=b[0], bound_by=b[1], library_ms=None, library=None,
+    ))
+    _print_rows(rows)
     return rows
 
 
-def phase_main_path(name: str, data: bytes, want: set[str]) -> dict:
-    """One config through decode_file on the card, held against the host
-    plan; the launch counters are zeroed just before the decode and read
-    just after."""
-    import j40_tpu_torch
+def phase_ragged_epf(dev) -> dict:
+    """The whole-plane EPF path on a plane whose sides are not multiples of
+    8: epf_device takes the single-step kernel, once per step.  The launch
+    counters are zeroed just before and read just after."""
+    from j40_tpu_torch.ops import filter_kernels as FK
     from j40_tpu_torch.ops import kernels as K
 
-    _, ref = j40_tpu_torch.decode_file(data, backend="numpy", workers=4)
+    ch, rs8 = ragged_plane(dev)
     K.reset_launches()
-    dec, rgba = j40_tpu_torch.decode_file(data, workers=4)
+    out = FK.epf_device(ch, rs8, **RAGGED_EPF)
+    torch.cuda.synchronize()
+    launches = dict(K.launches)
+    assert launches["epf_step"] == 3 and launches["epf_fused"] == 0, launches
+    assert out.shape == ch.shape and torch.isfinite(out).all()
+    err = (out - ragged_ref(ch, rs8)).abs().max().item()
+    assert err <= 2e-3, f"ragged EPF disagrees: {err}"
+    print(f"path ragged_epf {tuple(ch.shape)}: launches {launches}, max|err| {err}")
+    return dict(config="ragged_epf", launches=launches, max_abs_err=err)
+
+
+def _decode(data: bytes, backend: str = "torch", filters: bool = False):
+    """decode_file, or with the restoration filters the Decoder calls the
+    CLI makes (decode_file has no filter option): (decoder, RGBA8)."""
+    import j40_tpu_torch
+    from j40_tpu_torch.decode import Decoder
+
+    if not filters:
+        return j40_tpu_torch.decode_file(data, backend=backend, workers=4)
+    dec = Decoder(data, backend=backend, workers=4, apply_filters=True)
+    dec.decode_frame()
+    return dec, dec.render_rgba8()
+
+
+def phase_main_path(name: str, data: bytes, want: set[str],
+                    filters: bool = False) -> dict:
+    """One config decoded on the card, held against the host plan; the
+    launch counters are zeroed just before the decode and read just
+    after."""
+    from j40_tpu_torch.ops import kernels as K
+
+    _, ref = _decode(data, "numpy", filters)
+    K.reset_launches()
+    dec, rgba = _decode(data, "torch", filters)
     launches = dict(K.launches)
     assert rgba.shape == ref.shape and rgba.dtype == np.uint8
     diff = int(np.abs(rgba[:, :, :3].astype(np.int16) - ref[:, :, :3]).max())
@@ -298,12 +515,12 @@ def phase_main_path(name: str, data: bytes, want: set[str]) -> dict:
         ts = []
         for _ in range(3):
             t0 = time.perf_counter()
-            j40_tpu_torch.decode_file(data, backend=backend, workers=4)
+            _decode(data, backend, filters)
             ts.append(time.perf_counter() - t0)
         return rgba.shape[0] * rgba.shape[1] / 1e6 / statistics.median(ts)
 
     out = dict(
-        config=name, size=f"{rgba.shape[1]}x{rgba.shape[0]}",
+        config=name, filters=filters, size=f"{rgba.shape[1]}x{rgba.shape[0]}",
         stream_bytes=len(data), lf_groups=dec.stats["num_lf_groups"],
         launches=launches, max_abs_diff=diff, mpix_s=mpix("torch"),
         host_plan_mpix_s=mpix("numpy"),
@@ -313,7 +530,8 @@ def phase_main_path(name: str, data: bytes, want: set[str]) -> dict:
     # PERF.md's target, not yet met and not a gate: the card path at least
     # as fast as the host plan on the same machine
     out["target_met"] = out["mpix_s"] >= out["host_plan_mpix_s"]
-    print(f"main path {name} ({out['size']}, {out['lf_groups']} LF groups, "
+    print(f"main path {name}{' with filters' if filters else ''} "
+          f"({out['size']}, {out['lf_groups']} LF groups, "
           f"{len(data)} B): {out['mpix_s']:.2f} Mpix/s on the card (median of "
           f"3), host plan {out['host_plan_mpix_s']:.2f} Mpix/s, target_met "
           f"{out['target_met']}, launches "
@@ -321,7 +539,7 @@ def phase_main_path(name: str, data: bytes, want: set[str]) -> dict:
     return out
 
 
-def phase_profile(name: str, data: bytes) -> dict:
+def phase_profile(name: str, data: bytes, filters: bool = False) -> dict:
     """Where one warm decode's time goes: device time by kernel and copy
     (torch.profiler, CUPTI) against the wall time, and the host functions
     by cumulative time (cProfile, a separate decode: it slows Python)."""
@@ -329,14 +547,13 @@ def phase_profile(name: str, data: bytes) -> dict:
     import io
     import pstats
 
-    import j40_tpu_torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    j40_tpu_torch.decode_file(data, workers=4)
+    _decode(data, filters=filters)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        j40_tpu_torch.decode_file(data, workers=4)
+        _decode(data, filters=filters)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict = {}
@@ -349,7 +566,7 @@ def phase_profile(name: str, data: bytes) -> dict:
 
     pr = cProfile.Profile()
     pr.enable()
-    j40_tpu_torch.decode_file(data, workers=4)
+    _decode(data, filters=filters)
     pr.disable()
     s = io.StringIO()
     pstats.Stats(pr, stream=s).sort_stats("cumulative").print_stats(18)
@@ -382,32 +599,47 @@ def main() -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
 
     t0 = time.perf_counter()
-    streams = {"config3": config3(), "config4": config4()}
+    streams = {"config3": config3(), "config4": config4(), "config12f": config12f()}
     print(f"encode: {time.perf_counter() - t0:.1f} s, "
           f"{ {k: len(v) for k, v in streams.items()} } bytes")
     inp3 = group_inputs(streams["config3"])
-    inp4 = group_inputs(streams["config4"])
+    # with the filters' inputs too: the same arrays plus sigmas and weights
+    inp4 = group_inputs(streams["config4"], apply_filters=True)
+    inp12 = group_inputs(streams["config12f"], apply_filters=True)
     kinds4 = [g["kind"] for g in inp4]
-    print(f"LF groups: config3 {[g['kind'] for g in inp3]}, config4 {kinds4}")
+    print(f"LF groups: config3 {[g['kind'] for g in inp3]}, config4 {kinds4}, "
+          f"config12f {[g['kind'] for g in inp12]}")
     assert [g["kind"] for g in inp3] == ["dct8"] and "mixed" in kinds4
+    assert [g["kind"] for g in inp12] == ["dct8"] * 4
+    skipped = {k: (sum(int((g["filters"]["rs8"] < 0).sum()) for g in inp),
+                   sum(g["h8"] * g["w8"] for g in inp))
+               for k, inp in (("config4", inp4), ("config12f", inp12))}
+    print(f"EPF skips (blocks, of all blocks): {skipped}")
     big4 = next(g for g in inp4 if g["kind"] == "mixed" and g["h8"] * g["w8"] == 65536)
-    kernels = phase_kernels(inp3[0], big4, dev)
+    big12 = next(g for g in inp12 if g["h8"] * g["w8"] == 65536)
+    kernels = phase_kernels(inp3[0], big4, dev) + phase_filter_kernels(big12, dev)
 
+    filtered = {"reconstruct_dct8", "gaborish", "epf_fused", "xyb_to_srgb"}
     mains = [
         phase_main_path("config3", streams["config3"], {"reconstruct_dct8_srgb"}),
         phase_main_path("config4", streams["config4"],
                         {"reconstruct_dct8", "xyb_to_srgb"}),
+        phase_main_path("config12f", streams["config12f"], filtered, filters=True),
+        phase_main_path("config4", streams["config4"], filtered, filters=True),
+        phase_ragged_epf(dev),
     ]
     for r in kernels:
         r["launches"] = sum(m["launches"][r["name"]] for m in mains)
         assert r["launches"] > 0, f"{r['name']} never launched on the main path"
-    profiles = [phase_profile(k, v) for k, v in streams.items()]
+    profiles = [phase_profile(k, v) for k, v in streams.items() if k != "config12f"]
+    profiles.append(phase_profile("config12f", streams["config12f"], filters=True))
 
     out_dir = Path(__file__).resolve().parent / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build=build, kernels=kernels, main_path=mains,
-        profiles=profiles, seconds=time.perf_counter() - t_start), indent=1))
+        epf_skipped_blocks=skipped, profiles=profiles,
+        seconds=time.perf_counter() - t_start), indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))

@@ -75,8 +75,7 @@ class Frame:
 BACKENDS = ("torch", "numpy")
 
 
-def _check_backend(backend: str, apply_filters: bool,
-                   keep_device_output: bool) -> None:
+def _check_backend(backend: str, keep_device_output: bool) -> None:
     """Refuse what the port does not run yet, naming the ROADMAP item that
     ports it (port: replaces resolve_backend)."""
     if backend == "device":
@@ -87,9 +86,6 @@ def _check_backend(backend: str, apply_filters: bool,
     if keep_device_output:
         raise Unsupported(message="keep_device_output is not ported yet: "
                           "ROADMAP A.5")
-    if apply_filters and backend == "torch":
-        raise Unsupported(message="apply_filters on the torch backend is not "
-                          "ported yet: ROADMAP A.6")
 
 
 class Decoder:
@@ -100,7 +96,7 @@ class Decoder:
                  max_passes: int | None = None, render_spot: bool = False,
                  streaming: bool = False, keep_device_output: bool = False,
                  device=None):
-        _check_backend(backend, apply_filters, keep_device_output)
+        _check_backend(backend, keep_device_output)
         self.backend = backend
         #: port: the torch device of the reconstruction; None means CUDA,
         #: and raises where there is none (never a silent CPU run)

@@ -1,10 +1,10 @@
 """Build and load the CUDA kernels of csrc/ (nvcc → shared library → ctypes).
 
-The library has a plain C interface, so one nvcc call of a few seconds
-builds it, at first use, from the sources in the checkout into
-`build/j40_tpu_torch/` beside the package.  The file name carries a hash of
-the source and the flags, so an edited source never loads a stale build.
-Nothing here runs at import time.
+The library has a plain C interface, so it builds in seconds, at first use,
+from the sources in the checkout into `build/j40_tpu_torch/` beside the
+package: one nvcc process per source, all started together, then one link.
+The file name carries a hash of the sources and the flags, so an edited
+source never loads a stale build.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -19,13 +19,11 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "reconstruct.cu"
+SOURCES = [_PKG / "csrc" / "reconstruct.cu", _PKG / "csrc" / "filters.cu"]
 BUILD_DIR = _PKG.parent / "build" / "j40_tpu_torch"
 # sm_90a: Hopper; no --use_fast_math (the kernels keep IEEE fp32 division)
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -46,23 +44,43 @@ def nvcc_path() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/reconstruct.cu unless this exact build exists."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """Compile csrc/*.cu into one library unless this exact build exists."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in SOURCES:
+        h.update(s.name.encode() + b"\0" + s.read_bytes())
+    tag = h.hexdigest()[:12]
     out = BUILD_DIR / f"libj40tt_{tag}.so"
     if out.exists():
         build_info.update(seconds=0.0, log="cached", path=str(out))
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in SOURCES]
     t0 = time.perf_counter()
-    r = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}{r.stderr}")
+    nvcc = nvcc_path()
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for s, o in zip(SOURCES, objs)]
+    logs, failed = [], []
+    for s, p in zip(SOURCES, procs):
+        log = p.communicate()[0]
+        logs.append(f"== {s.name}\n{log}")
+        if p.returncode != 0:
+            failed.append(s.name)
+    if not failed:
+        r = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                           capture_output=True, text=True)
+        logs.append(f"== link\n{r.stdout}{r.stderr}")
+        if r.returncode != 0:
+            failed.append("link")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n" + "".join(logs))
     os.replace(tmp, out)
-    build_info.update(seconds=time.perf_counter() - t0,
-                      log=r.stdout + r.stderr, path=str(out))
+    build_info.update(seconds=time.perf_counter() - t0, log="".join(logs),
+                      path=str(out))
     return out
 
 
@@ -81,6 +99,12 @@ def load_kernels():
         lib.j40tt_reconstruct_dct8_srgb.restype = i
         lib.j40tt_xyb_to_srgb.argtypes = [p, p, p, ll, i, i, p]
         lib.j40tt_xyb_to_srgb.restype = i
+        # csrc/filters.cu; the EpfParams struct and the weights by pointer
+        for fn in ("j40tt_epf_step", "j40tt_epf_fused"):
+            getattr(lib, fn).argtypes = [p, p, p, i, i, p, p]
+            getattr(lib, fn).restype = i
+        lib.j40tt_gaborish.argtypes = [p, p, i, i, p, p]
+        lib.j40tt_gaborish.restype = i
         lib.j40tt_error_string.argtypes = [i]
         lib.j40tt_error_string.restype = ctypes.c_char_p
         lib.j40tt_tile_blocks.argtypes = []

@@ -8,9 +8,11 @@ sample planes of one LF group with mirrored borders (the reference's
 pipeline collective-free; spec-style whole-image filtering would need a halo
 exchange between neighboring groups.
 
-This copy keeps only the numpy (oracle) half: the host plan and the
-numpy reconstruction oracle use it.  The device filters are not ported yet
-(ROADMAP A.6), so `Decoder(backend="torch", apply_filters=True)` raises.
+Two halves: numpy (the oracle; the host plan and the numpy reconstruction
+use it) and plain PyTorch on tensors of any device (the counterpart of the
+JAX package's XLA filters, kept in lockstep with it).  The torch half is
+what the CUDA kernels of ops/filter_kernels.py are held against;
+`Decoder(backend="torch", apply_filters=True)` runs those kernels.
 
 NOTE: the reference's EPF distance tables index kernels as (dx, dy) while
 its sampling step uses (dy, dx); being dead code this was likely never
@@ -20,6 +22,7 @@ noticed — we replicate the reference behavior exactly.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # kernel tables (j40.h:7579-7583), in the reference's (k0, k1) order
 KERNELS12 = (
@@ -189,3 +192,154 @@ def epf(channels: np.ndarray, vs, gg, is_modular: bool = False) -> np.ndarray:
         channels = epf_step(channels, f.epf_pass2_sigma_scale, recip, KERNELS4,
                             False, **kw)
     return channels
+
+
+# ---------------------------------------------------------------- torch path
+
+
+def _mirror_on(n: int, pad: int, device) -> torch.Tensor:
+    """Half-sample mirror indices of [-pad, n + pad) as a tensor."""
+    return torch.from_numpy(_mirror_index(np.arange(-pad, n + pad), n)).to(device)
+
+
+def gaborish_torch(channels: torch.Tensor, weights) -> torch.Tensor:
+    """Plain PyTorch gaborish (counterpart of gaborish_jax): (3, H, W)
+    float32 in and out, weights normalized in double precision as there."""
+    norm = []
+    for c in range(3):
+        w1, w2 = weights[c]
+        wsum = 1.0 + w1 * 4 + w2 * 4
+        norm.append((1.0 / wsum, w1 / wsum, w2 / wsum))
+    w0n, w1n, w2n = (torch.tensor([n[i] for n in norm], dtype=torch.float32,
+                                  device=channels.device).view(3, 1, 1)
+                     for i in range(3))
+    p = torch.nn.functional.pad(channels[None], (1, 1, 1, 1), mode="replicate")[0]
+    return (
+        p[:, :-2, :-2] * w2n + p[:, :-2, 1:-1] * w1n + p[:, :-2, 2:] * w2n
+        + p[:, 1:-1, :-2] * w1n + p[:, 1:-1, 1:-1] * w0n + p[:, 1:-1, 2:] * w1n
+        + p[:, 2:, :-2] * w2n + p[:, 2:, 1:-1] * w1n + p[:, 2:, 2:] * w2n
+    )
+
+
+def step_scales(sigma_scale: float, border_sad_mul: float) -> tuple[float, float]:
+    """The fp32 sigma scales of one EPF step, inside and on the border of
+    an 8x8 block (as _epf_step_jax_rows forms them)."""
+    ss = np.float32(sigma_scale * POS_MULT)
+    return float(ss), float(ss * np.float32(border_sad_mul))
+
+
+def _epf_step_torch(channels, rs_px, sigma_scale: float, kernels,
+                    dist_uses_cross: bool, channel_scale, border_sad_mul: float):
+    """One EPF pass in plain PyTorch (counterpart of _epf_step_jax):
+    channels (3, H, W) float32, rs_px (H, W) per-pixel reciprocal sigma,
+    negative where the block is skipped."""
+    rows = channels[:, _mirror_on(channels.shape[1], 3, channels.device)]
+    return _epf_step_torch_rows(rows, channels, rs_px, 0, sigma_scale, kernels,
+                                dist_uses_cross, channel_scale, border_sad_mul)
+
+
+def _epf_step_torch_rows(rows, channels, rs_px, y0: int, sigma_scale: float,
+                         kernels, dist_uses_cross: bool, channel_scale,
+                         border_sad_mul: float):
+    """EPF pass given 3 halo rows on each side (counterpart of
+    _epf_step_jax_rows): rows (3, H + 6, W), channels = rows[:, 3:-3], y0 the
+    global row of row 0 (for the 8x8 border flag)."""
+    _, H, W = channels.shape
+    dev = channels.device
+    ss, bs = step_scales(sigma_scale, border_sad_mul)
+    ys = y0 + torch.arange(H, device=dev)
+    xs = torch.arange(W, device=dev)
+    border = (((xs[None, :] + 1) | (ys[:, None] + 1)) & 7) < 2
+    inv_sigma = torch.where(border, rs_px * bs, rs_px * ss)
+
+    pad3 = rows[:, :, _mirror_on(W, 3, dev)]  # (3, H + 6, W + 6)
+    pad2 = pad3[:, 1:-1, 1:-1]
+    base = pad3[:, 2: 2 + H + 2, 2: 2 + W + 2]
+    scale = [float(np.float32(s)) for s in channel_scale]
+    sum_weights = torch.ones((H, W), dtype=torch.float32, device=dev)
+    sum_channels = channels
+    for k0, k1 in kernels:
+        dx, dy = k0, k1  # distances use (dx, dy) = (k0, k1); see epf_step
+        d = (base - pad3[:, 2 + dy: 2 + dy + H + 2, 2 + dx: 2 + dx + W + 2]).abs()
+        dist = torch.zeros((H, W), dtype=torch.float32, device=dev)
+        for c in range(3):
+            dc = d[c]
+            if dist_uses_cross:
+                dist = dist + scale[c] * (
+                    dc[1: 1 + H, 1: 1 + W]
+                    + dc[1: 1 + H, 0:W] + dc[0:H, 1: 1 + W]
+                    + dc[2: 2 + H, 1: 1 + W] + dc[1: 1 + H, 2: 2 + W]
+                )
+            else:
+                dist = dist + scale[c] * dc[1: 1 + H, 1: 1 + W]
+        weight = torch.clamp_min(1.0 + dist * inv_sigma, 0.0)
+        sum_weights = sum_weights + weight
+        dy, dx = k0, k1  # sampling transposes the taps (reference parity)
+        sum_channels = sum_channels + pad2[:, 2 + dy: 2 + dy + H,
+                                           2 + dx: 2 + dx + W] * weight[None]
+    out = sum_channels / sum_weights[None]
+    return torch.where((rs_px < 0.0)[None], channels, out)
+
+
+def epf_step_list(iters: int, p0_scale: float, p2_scale: float) -> list:
+    """The EPF steps of a frame, in order: (sigma_scale, kernels, cross)."""
+    steps = []
+    if iters >= 3:
+        steps.append((p0_scale, KERNELS12, True))
+    if iters >= 1:
+        steps.append((1.0, KERNELS4, True))
+    if iters >= 2:
+        steps.append((p2_scale, KERNELS4, False))
+    return steps
+
+
+def epf_steps_torch(channels, rs_px, *, iters: int, channel_scale,
+                    p0_scale: float, p2_scale: float, border_sad_mul: float):
+    """Up to three EPF steps in plain PyTorch (counterpart of _epf_steps_jit)."""
+    for ss, kernels, cross in epf_step_list(iters, p0_scale, p2_scale):
+        channels = _epf_step_torch(channels, rs_px, ss, kernels, cross,
+                                   channel_scale, border_sad_mul)
+    return channels
+
+
+def epf_params(f) -> dict:
+    """A frame's EPF parameters as keyword arguments of epf_steps_torch."""
+    return dict(
+        iters=int(f.epf_iters),
+        channel_scale=tuple(float(s) for s in f.epf_channel_scale),
+        p0_scale=float(f.epf_pass0_sigma_scale),
+        p2_scale=float(f.epf_pass2_sigma_scale),
+        border_sad_mul=float(f.epf_border_sad_mul),
+    )
+
+
+def epf_rs8(vs, gg, H: int, W: int, is_modular: bool) -> np.ndarray | None:
+    """Per-8x8-block reciprocal sigmas of an (H, W) plane; None when EPF
+    leaves a modular plane as it is."""
+    f = vs.fs.f
+    if not is_modular:
+        return epf_recip_sigmas(vs, gg)
+    if f.epf_sigma_for_modular < SIGMA_THRESHOLD:
+        return None
+    return np.full(((H + 7) // 8, (W + 7) // 8), 1.0 / f.epf_sigma_for_modular,
+                   dtype=np.float32)
+
+
+def rs_per_pixel(rs8: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """(H, W) per-pixel reciprocal sigma from the per-block plane."""
+    return rs8.repeat_interleave(8, 0).repeat_interleave(8, 1)[:H, :W]
+
+
+def epf_torch(channels, vs, gg, is_modular: bool = False):
+    """Plain PyTorch EPF of a (3, H, W) tensor (counterpart of epf_jax); the
+    per-block sigma plane is computed on the host.  The decode path runs the
+    kernels instead (ops/filter_kernels.py)."""
+    f = vs.fs.f
+    if f.epf_iters <= 0:
+        return channels
+    _, H, W = channels.shape
+    rs8 = epf_rs8(vs, gg, H, W, is_modular)
+    if rs8 is None:
+        return channels
+    rs_px = rs_per_pixel(torch.from_numpy(rs8).to(channels.device), H, W)
+    return epf_steps_torch(channels, rs_px, **epf_params(f))

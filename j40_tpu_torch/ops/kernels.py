@@ -1,5 +1,6 @@
 """The three CUDA kernels of the VarDCT reconstruction, their plain PyTorch
-versions and their wrappers.
+versions and their wrappers, and what every wrapper of the port shares:
+the device rule, the checks, the launch and its count.
 
 Counterpart of j40_tpu/ops/pallas_kernels.py; the kernels themselves are
 in csrc/reconstruct.cu.  Each wrapper takes a CUDA tensor to its kernel
@@ -24,8 +25,10 @@ import torch
 from ..vardct.dct import inverse_dct2d
 from . import reconstruct as R
 
-#: kernel launches since the last reset_launches(), by wrapper name
-launches = {"reconstruct_dct8_srgb": 0, "reconstruct_dct8": 0, "xyb_to_srgb": 0}
+#: kernel launches since the last reset_launches(), by wrapper name (the
+#: filter wrappers of ops/filter_kernels.py count here too)
+launches = {"reconstruct_dct8_srgb": 0, "reconstruct_dct8": 0, "xyb_to_srgb": 0,
+            "epf_step": 0, "epf_fused": 0, "gaborish": 0}
 _launch_lock = threading.Lock()
 
 

@@ -7,7 +7,9 @@ the file imports no jax, so it runs on a machine with only PyTorch:
 
 Tolerances: float samples within 1e-4 absolute (fp32 sums in another order
 and FMA contraction); quantized sRGB within 1 level, or within 1e-5 of the
-value where pre-clamp sRGB lies far outside [0, maxval].
+value where pre-clamp sRGB lies far outside [0, maxval].  The filters,
+on samples of scale 50: within 2e-3 absolute (sums of up to 13 weighted
+taps with FMA contraction, as tests/test_filters.py holds the Pallas EPF).
 """
 
 import numpy as np
@@ -21,6 +23,7 @@ from j40_tpu_torch.encode.vardct_enc import (
 from j40_tpu_torch.headers.image import (
     OPSIN_BIAS, OPSIN_INV_MAT, QUANT_BIAS, QUANT_BIAS_NUM,
 )
+from j40_tpu_torch.ops import filter_kernels as FK
 from j40_tpu_torch.ops import kernels as K
 from j40_tpu_torch.vardct.dequant import DqMatrix, load_dq_matrix
 
@@ -112,6 +115,40 @@ def test_wrappers_refuse_mixed_devices(cuda):
                                 _consts22(255.0).to(cuda), 2, 3)
 
 
+CS = (40.0, 5.0, 3.5)
+GAB_W = ((0.115, 0.061), (0.1, 0.05), (0.12, 0.06))
+
+
+@pytest.mark.parametrize("h,w", [(5, 3), (37, 61), (48, 64), (16, 8), (200, 72), (1023, 1021),
+                                 (256, 2048)])
+def test_filter_kernels_vs_plain(cuda, h, w):
+    """B7 (each step kind), B8 (1-3 steps, 8-multiple planes) and B9 against
+    their plain versions, with one skipped block."""
+    rng = np.random.default_rng(h * w)
+    ch = torch.from_numpy(rng.normal(size=(3, h, w)).astype(np.float32) * 50)
+    rs8 = np.abs(rng.normal(size=(-(-h // 8), -(-w // 8)))).astype(np.float32) * 0.05 + 0.02
+    rs8.flat[rs8.size // 2] = -1.0
+    rs8 = torch.from_numpy(rs8)
+    g, r = ch.to(cuda), rs8.to(cuda)
+    K.reset_launches()
+    got = FK.gaborish(g, GAB_W)
+    assert (got.cpu() - FK.gaborish_ref(ch, GAB_W)).abs().max().item() <= 2e-3
+    for kind, ss in ((0, 0.9), (1, 1.0), (2, 6.5)):
+        got = FK.epf_step(g, r, ss, kind, CS, 2.78)
+        ref = FK.epf_step_ref(ch, rs8, ss, kind, CS, 2.78)
+        assert (got.cpu() - ref).abs().max().item() <= 2e-3
+    want = {"gaborish": 1, "epf_step": 3, "epf_fused": 0}
+    if h % 8 == 0 and w % 8 == 0:
+        for iters in (1, 2, 3):
+            steps = FK.frame_steps(iters, 0.9, 6.5)
+            got = FK.epf_fused(g, r, steps, CS, 2.78)
+            ref = FK.epf_fused_ref(ch, rs8, steps, CS, 2.78)
+            assert (got.cpu() - ref).abs().max().item() <= 2e-3
+        want["epf_fused"] = 3
+    torch.cuda.synchronize()
+    assert {k: K.launches[k] for k in want} == want
+
+
 def _noise(rng, h, w):
     return (np.cumsum(np.cumsum(rng.integers(-2, 3, size=(h, w, 3)), 0), 1)
             % 200 + 20).astype(np.uint8)
@@ -146,4 +183,22 @@ def test_decode_on_card_vs_cpu(cuda, make, want):
         launched = {k for k, v in K.launches.items() if v}
         assert launched == (want if dev == "cuda" else set()), K.launches
         outs.append(np.stack([np.asarray(c, np.int64) for c in dec.frame.canvas[:3]]))
+    assert np.abs(outs[0] - outs[1]).max() <= 1
+
+
+def test_filtered_decode_on_card_vs_cpu(cuda):
+    """Decoder(apply_filters=True): B2 -> B9 -> B8 -> B3 on the card, held
+    against device="cpu" (the plain versions)."""
+    img = _noise(np.random.default_rng(3), 200, 2300)  # two LF groups
+    data = encode_vardct(img, VarDCTOptions(sharpness=5, custom_restoration=True,
+                                            epf_iters=3))
+    outs = []
+    for dev in ("cuda", "cpu"):
+        K.reset_launches()
+        dec = Decoder(data, device=dev, workers=4, apply_filters=True)
+        dec.decode_frame()
+        launched = {k for k, v in K.launches.items() if v}
+        assert launched == ({"reconstruct_dct8", "gaborish", "epf_fused", "xyb_to_srgb"}
+                            if dev == "cuda" else set()), K.launches
+        outs.append(dec.render_rgba8().astype(np.int64))
     assert np.abs(outs[0] - outs[1]).max() <= 1

@@ -63,6 +63,11 @@ for enc in (encode_modular, encode_vardct_mixed):
     assert im.current_frame().pixels_u8x4().shape == (150, 260, 4)
     _, rgba = j40_tpu_torch.decode_file(data, device="cpu")
     assert rgba.shape == (150, 260, 4)
+# the restoration filters (ops/filters.py, ops/filter_kernels.py)
+from j40_tpu_torch.decode import Decoder
+dec = Decoder(data, device="cpu", apply_filters=True)
+dec.decode_frame()
+assert dec.render_rgba8().shape == (150, 260, 4)
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("OK")
 """
@@ -106,6 +111,16 @@ def test_no_forbidden_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_every_kernel_source_is_built():
+    """The one kernel library is built from every CUDA source of csrc/
+    (reconstruct.cu and filters.cu), and its wrappers are in the scan above."""
+    from j40_tpu_torch.ops import _build
+
+    assert sorted(_build.SOURCES) == sorted((PORT / "csrc").glob("*.cu"))
+    assert {p.name for p in _build.SOURCES} == {"reconstruct.cu", "filters.cu"}
+    assert (PORT / "ops" / "filter_kernels.py") in set(PORT.rglob("*.py"))
+
+
 @pytest.mark.parametrize("rel", VERBATIM)
 def test_copies_unchanged(rel):
     assert (PORT / rel).read_bytes() == (ROOT / "j40_tpu" / rel).read_bytes()
@@ -124,7 +139,7 @@ def test_no_silent_cpu():
 
 @pytest.mark.parametrize("kw", [
     dict(backend="device"), dict(backend="jax"), dict(backend="auto"),
-    dict(keep_device_output=True), dict(apply_filters=True),
+    dict(keep_device_output=True),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_options_raise(kw):
     """What the port does not run yet raises; nothing falls back."""
@@ -135,6 +150,18 @@ def test_unported_options_raise(kw):
     data = encode_vardct(np.full((16, 16, 3), 90, np.uint8))
     with pytest.raises(Unsupported, match="ROADMAP|use one of"):
         Decoder(data, device="cpu", **kw)
+
+
+def test_apply_filters_decodes():
+    """The restoration filters run on the torch backend, here through their
+    plain versions."""
+    from j40_tpu_torch.decode import Decoder
+    from j40_tpu_torch.encode.vardct_enc import encode_vardct
+
+    data = encode_vardct(np.full((16, 16, 3), 90, np.uint8))
+    dec = Decoder(data, device="cpu", apply_filters=True)
+    dec.decode_frame()
+    assert dec.render_rgba8().shape == (16, 16, 4)
 
 
 def test_render_rgba8_device_raises():
