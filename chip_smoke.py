@@ -13,7 +13,11 @@ which raises on failure (the script then exits non-zero):
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    on the inputs the main path gives it (the LF groups of the streams
    below), its device time beside its plain version's, a library
-   yardstick's and its bound;
+   yardstick's and its bound.  The HF entropy kernels (B4, B5) run on the
+   full-size lanes of config 4 (prefix code) and of bench.py's two
+   2048x2048 HF probe streams (single-cluster ANS; 5 clusters): capped
+   against their plain versions, uncapped against the host plan's
+   coefficient planes;
 4. main path: the BASELINE VarDCT configs 3 (1024x1024, all DCT8) and 4
    (4096x3072 mixed varblocks, custom orders and dequant matrices), made
    from a seed by the port's encoder, decoded by `decode_file(data,
@@ -23,11 +27,16 @@ which raises on failure (the script then exits non-zero):
    4's image, all DCT8, custom gaborish and 3-step EPF) and on config 4,
    each held against the host plan with the same filters; then the
    whole-plane EPF of a plane whose sides are not multiples of 8
-   (`filter_kernels.epf_device`, the single-step kernel).  The kernel launch
-   counters, zeroed just before each path and read just after, show which
-   kernels each went through;
+   (`filter_kernels.epf_device`, the single-step kernel); then
+   `decode_file(data, backend="device", workers=4)` (the HF entropy of
+   the eligible sections on the card) on configs 3 and 4 and the two
+   probe streams, each equal to `backend="torch"` and within 1 level of
+   the host plan, with every eligible section on the HF kernels.  The
+   kernel launch counters, zeroed just before each path and read just
+   after, show which kernels each went through;
 5. profile: one warm decode of configs 3, 4 and 12F under torch.profiler
-   (device busy time and idle share) and cProfile (host time by function).
+   (device busy time and idle share) and cProfile (host time by function),
+   and one of config 4 under `backend="device"`.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the card's name and power limit; before that one {"kernels": [...]} line.
@@ -95,11 +104,42 @@ def config12f() -> bytes:
         sharpness=5, custom_restoration=True, epf_iters=3))
 
 
+def hf_image(size: int = 2048) -> np.ndarray:
+    """bench.py _bench_hf_ctx's photo-density image (seed 7)."""
+    rng = np.random.default_rng(7)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    return np.stack([
+        (96 + 60 * np.sin(xx / 29) * np.cos(yy / 23)
+         + 40 * np.sin((xx + yy) / 71) + 10 * np.sin(xx / (9 + 2 * c))
+         + rng.normal(0, 0.7, (size, size)))
+        for c in range(3)], -1).clip(0, 255).astype(np.uint8)
+
+
+def hf_streams() -> dict[str, bytes]:
+    """The HF kernels' own probe streams (bench.py _bench_hf_ctx, 2048x2048,
+    one LF group, 64 sections): single-cluster ANS (B4's rANS path) and the
+    5-cluster spec (B5)."""
+    from j40_tpu_torch.encode.vardct_enc import VarDCTOptions, encode_vardct
+
+    img = hf_image()
+    return {"hf_ans_2048": encode_vardct(img, VarDCTOptions(use_prefix=False)),
+            "hf_ctx_2048": encode_vardct(img, VarDCTOptions(use_prefix=False,
+                                                            coeff_clusters=5))}
+
+
 # bench.py _bench_device_filters' EPF parameters, for the ragged-plane path
 RAGGED_EPF = dict(iters=3, channel_scale=(40.0, 5.0, 3.5), p0_scale=0.9,
                   p2_scale=6.5, border_sad_mul=2.78)
 # filter kernels against their plain versions on XYB planes (phase 3)
 XYB_ATOL = 1e-5
+# symbols per lane of the capped HF kernel-vs-plain comparison (the plain
+# version is one lockstep step of some 80 small launches per symbol)
+HF_CAP = 2000
+# least 32-bit integer operations per HF symbol: the table index and alias
+# select (6), the state update and renormalization (6), the hybrid-int
+# shifts and masks (8), the structure counters, the output index and the
+# store (10)
+HF_OPS_PER_SYMBOL = 30
 
 
 def device_ms(fn) -> float:
@@ -480,6 +520,141 @@ def phase_ragged_epf(dev) -> dict:
     return dict(config="ragged_epf", launches=launches, max_abs_err=err)
 
 
+def hf_plan(data: bytes) -> dict:
+    """The device route's lanes of a stream, as ops/device_vardct.py plans
+    them, on an LF-only host decode: {vd, spec, ctx, lanes, orders}."""
+    from j40_tpu_torch.decode import Decoder
+    from j40_tpu_torch.ops import device_vardct as DV
+
+    dec = Decoder(data, backend="numpy", max_passes=0)
+    dec.decode_frame(_defer_finish=True)
+    f, toc, state = dec._deferred
+    plan = DV.hf_lanes(dec, state, f, [s for s in toc.sections if s.pass_ == 0])
+    assert plan is not None, "no section is eligible for the device route"
+    return dict(zip(("spec", "ctx", "lanes", "orders"), plan), vd=state.vardct)
+
+
+def hf_mode(plan: dict) -> str:
+    """Which kernel path a plan's lanes take: B4 "prefix" or "ans", or B5
+    "ctx"."""
+    if plan["ctx"]:
+        return "ctx"
+    return "prefix" if plan["spec"].use_prefix_code else "ans"
+
+
+def host_coeffs(vd, lanes, ncmax: int) -> np.ndarray:
+    """(L, 3, ncmax, 64) float32: each lane's coefficients in natural
+    positions from the host plan's entropy decode of its section (the
+    native core), gathered by vb_coeffoff."""
+    from j40_tpu_torch.io.bits import BitReader
+
+    out = np.zeros((len(lanes), 3, ncmax, 64), np.float32)
+    for li, ln in enumerate(lanes):
+        vd.read_pass_group(BitReader(ln.data), 0, ln.section.idx)
+        gg = ln.gg
+        sub = gg.blocks[ln.gy8:ln.gy8 + ln.gh8, ln.gx8:ln.gx8 + ln.gw8].ravel()
+        idx = gg.vb_coeffoff[sub & 0xFFFFF].astype(np.int64)[:, None] + np.arange(64)
+        for c in range(3):
+            out[li, c, :len(sub)] = gg.coeffs[c][idx]
+    return out
+
+
+def lane_symbols(out: torch.Tensor, nat: torch.Tensor, nc: torch.Tensor) -> torch.Tensor:
+    """Symbols each lane's walk decoded, from its coefficient planes: per
+    cell and channel the nonzero count, then the coefficients up to the
+    last nonzero in coefficient order (j40.h:6959-6992)."""
+    L, _, ncmax, _ = out.shape
+    natl = (nat if nat.dim() == 3 else nat.expand(L, 3, 64)).long()
+    ordered = out.gather(3, natl[:, :, None, :].expand(-1, -1, ncmax, -1))
+    i = torch.arange(1, 64, device=out.device)
+    last = torch.where(ordered[..., 1:] != 0, i, 0).amax(-1)  # (L, 3, ncmax)
+    valid = torch.arange(ncmax, device=out.device)[None, :] < nc.long()[:, None]
+    return ((1 + last) * valid[:, None, :]).sum((1, 2))
+
+
+def event_ms(fn, reps: int = 1) -> float:
+    """Time per call of `reps` calls on the card between two CUDA events.
+    For the HF walks: one launch of tens of milliseconds, where the launch
+    path is noise (a CUPTI session lost 2 of 32 records of such launches
+    in two runs of three), and the plain versions, whose ~10^5 small
+    launches per call would swamp the profiler."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def phase_hf_kernels(plans: dict, dev) -> list[dict]:
+    """B4 (prefix on config 4's first launch, rANS on hf_ans_2048) and B5
+    (hf_ctx_2048) on the main path's full-size lanes: kernel and plain
+    version on the card from the same packed inputs, capped at HF_CAP
+    symbols, must give the same planes and snapshots; the uncapped kernel
+    must give the host plan's coefficient planes exactly, end every lane
+    (the final ANS state 0x130000 where rANS) and flag no error."""
+    from j40_tpu_torch.ops import device_vardct as DV
+    from j40_tpu_torch.ops import hf_kernels as HK
+
+    rows = []
+    for name, cfg, replaces in (("hf_prefix", "config4", "j40_tpu/ops/pallas_hf.py:71"),
+                                ("hf_ans", "hf_ans_2048", "j40_tpu/ops/pallas_hf.py:71"),
+                                ("hf_ctx", "hf_ctx_2048", "j40_tpu/ops/pallas_hf.py:725")):
+        p = plans[cfg]
+        batch = DV.hf_batches(p["lanes"])[0]
+        ncmax = max(ln.gw8 * ln.gh8 for ln in batch)
+        d, launch, done_row = DV.pack_hf_batch(p["vd"], p["spec"], batch, p["orders"],
+                                               p["ctx"], dev)
+        assert name == f"hf_{hf_mode(p)}", (name, hf_mode(p))
+        plain = HK.hf_ctx_walk_ref if p["ctx"] else HK.hf_walk_ref
+        out_k, st_k = launch(ncmax, cap_steps=HF_CAP)
+        out_p, st_p = launch(ncmax, cap_steps=HF_CAP, walk=plain)
+        torch.cuda.synchronize()
+        assert torch.equal(st_k, st_p), f"{name}: snapshot differs from the plain version"
+        assert torch.equal(out_k, out_p), f"{name}: planes differ from the plain version"
+
+        out, st = launch(ncmax)
+        s = HK.lane_state(st, len(batch), done_row)
+        host = torch.from_numpy(host_coeffs(p["vd"], batch, ncmax)).to(dev)
+        err = (out - host).abs().max().item()
+        assert err == 0, f"{name}: planes differ from the host plan by {err}"
+        assert s["done"].all() and not s["err"].any(), s
+        assert p["spec"].use_prefix_code or (s["ans_state"] == 0x130000).all()
+        sym = lane_symbols(out, d["nat"], d["nc"])
+        nsym, longest = int(sym.sum()), int(sym.max())
+
+        scratch = torch.empty_like(out)
+        ms = event_ms(lambda: launch(ncmax, out=scratch), 10)
+        ms_cap = event_ms(lambda: launch(ncmax, cap_steps=HF_CAP, out=scratch), 20)
+        plain_ms = event_ms(lambda: launch(ncmax, cap_steps=HF_CAP, out=scratch,
+                                           walk=plain))
+        tables = sum(d[k].numel() * 4 for k in ("lut", "lane", "nat", "ab", "cmap",
+                                                "cfgw", "nf", "bctx3") if k in d)
+        b = bound(sum(len(ln.data) for ln in batch) + tables + out.numel() * 4,
+                  HF_OPS_PER_SYMBOL * nsym)
+        rows.append(dict(
+            name=name, route="cuda", source="j40_tpu_torch/csrc/hf.cu",
+            replaces=replaces, counter="hf_ctx" if p["ctx"] else "hf",
+            mode=hf_mode(p),
+            shape=f"{len(batch)} lanes of {cfg}, up to {max(len(ln.data) for ln in batch)} B "
+                  f"and {ncmax} cells -> {tuple(out.shape)} f32",
+            max_abs_err=err, ms=ms, ms_at_cap=ms_cap, timer="CUDA events",
+            plain_ms=plain_ms, plain_cap=HF_CAP,
+            bound_ms=b[0], bound_by=b[1], library_ms=None, library=None,
+            symbols=nsym, symbols_longest_lane=longest,
+            ns_per_symbol=ms * 1e6 / longest,
+        ))
+        print(f"kernel {name} [{rows[-1]['shape']}]: {ms:.3f} ms uncapped "
+              f"({nsym} symbols, longest lane {longest}, "
+              f"{rows[-1]['ns_per_symbol']:.1f} ns per symbol), {ms_cap:.4f} ms at "
+              f"{HF_CAP} steps, plain {plain_ms:.1f} ms at {HF_CAP} steps, bound "
+              f"{b[0]:.4f} ms ({b[1]}); equal to the plain version (capped) and "
+              f"to the host plan (uncapped)")
+    return rows
+
+
 def _decode(data: bytes, backend: str = "torch", filters: bool = False):
     """decode_file, or with the restoration filters the Decoder calls the
     CLI makes (decode_file has no filter option): (decoder, RGBA8)."""
@@ -493,16 +668,19 @@ def _decode(data: bytes, backend: str = "torch", filters: bool = False):
     return dec, dec.render_rgba8()
 
 
-def phase_main_path(name: str, data: bytes, want: set[str],
-                    filters: bool = False) -> dict:
+def phase_main_path(name: str, data: bytes, want: set[str], filters: bool = False,
+                    backend: str = "torch", lanes: int | None = None) -> dict:
     """One config decoded on the card, held against the host plan; the
-    launch counters are zeroed just before the decode and read just
-    after."""
+    launch counters are zeroed just before the decode and read just after.
+    Under backend="device" the decode must also equal backend="torch"
+    exactly and take `lanes` sections on the HF kernels."""
     from j40_tpu_torch.ops import kernels as K
 
     _, ref = _decode(data, "numpy", filters)
+    if backend == "device":
+        _, torch_rgba = _decode(data, "torch", filters)
     K.reset_launches()
-    dec, rgba = _decode(data, "torch", filters)
+    dec, rgba = _decode(data, backend, filters)
     launches = dict(K.launches)
     assert rgba.shape == ref.shape and rgba.dtype == np.uint8
     diff = int(np.abs(rgba[:, :, :3].astype(np.int16) - ref[:, :, :3]).max())
@@ -510,6 +688,10 @@ def phase_main_path(name: str, data: bytes, want: set[str],
     assert (rgba[:, :, 3] == 255).all()
     ran = {k for k, v in launches.items() if v}
     assert want <= ran, f"{name}: launches {launches}, want {sorted(want)}"
+    if backend == "device":
+        assert np.array_equal(rgba, torch_rgba), f"{name}: device route != torch"
+        hf = dec.stats["device_vardct"]
+        assert hf["lanes"] == lanes, f"{name}: {hf} against {lanes} eligible sections"
 
     def mpix(backend):
         ts = []
@@ -520,26 +702,33 @@ def phase_main_path(name: str, data: bytes, want: set[str],
         return rgba.shape[0] * rgba.shape[1] / 1e6 / statistics.median(ts)
 
     out = dict(
-        config=name, filters=filters, size=f"{rgba.shape[1]}x{rgba.shape[0]}",
+        config=name, backend=backend, path=f"{name}/{backend}" + ("+filters" * filters),
+        filters=filters, size=f"{rgba.shape[1]}x{rgba.shape[0]}",
         stream_bytes=len(data), lf_groups=dec.stats["num_lf_groups"],
-        launches=launches, max_abs_diff=diff, mpix_s=mpix("torch"),
+        launches=launches, max_abs_diff=diff, mpix_s=mpix(backend),
         host_plan_mpix_s=mpix("numpy"),
         stages_s={k: dec.stats[k] for k in
                   ("headers_s", "sections_s", "reconstruct_s", "total_s")},
     )
+    if backend == "device":
+        out["device_vardct"] = dict(dec.stats["device_vardct"])
+        out["torch_mpix_s"] = mpix("torch")
     # PERF.md's target, not yet met and not a gate: the card path at least
     # as fast as the host plan on the same machine
     out["target_met"] = out["mpix_s"] >= out["host_plan_mpix_s"]
-    print(f"main path {name}{' with filters' if filters else ''} "
+    torch_rate = (f", torch path {out['torch_mpix_s']:.2f} Mpix/s, HF route "
+                  f"{out['device_vardct']}" if backend == "device" else "")
+    print(f"main path {name}{' with filters' if filters else ''}, backend={backend} "
           f"({out['size']}, {out['lf_groups']} LF groups, "
           f"{len(data)} B): {out['mpix_s']:.2f} Mpix/s on the card (median of "
-          f"3), host plan {out['host_plan_mpix_s']:.2f} Mpix/s, target_met "
+          f"3){torch_rate}, host plan {out['host_plan_mpix_s']:.2f} Mpix/s, target_met "
           f"{out['target_met']}, launches "
           f"{launches}, max|diff| {diff}, first decode stages {out['stages_s']}")
     return out
 
 
-def phase_profile(name: str, data: bytes, filters: bool = False) -> dict:
+def phase_profile(name: str, data: bytes, filters: bool = False,
+                  backend: str = "torch") -> dict:
     """Where one warm decode's time goes: device time by kernel and copy
     (torch.profiler, CUPTI) against the wall time, and the host functions
     by cumulative time (cProfile, a separate decode: it slows Python)."""
@@ -550,38 +739,43 @@ def phase_profile(name: str, data: bytes, filters: bool = False) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    _decode(data, filters=filters)
+    _decode(data, backend, filters)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # a session may lose its first device record (one of config 4's
+        # two HF launches, in three runs): spend it on a tiny kernel
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _decode(data, filters=filters)
+        _decode(data, backend, filters)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name: dict = {}
+    by_name: dict = {}  # name -> [device us, records]
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            us = e.time_range.end - e.time_range.start
-            by_name[e.name] = by_name.get(e.name, 0.0) + us
-    device_us = sum(by_name.values())
-    top_device = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+            rec = by_name.setdefault(e.name, [0.0, 0])
+            rec[0] += e.time_range.end - e.time_range.start
+            rec[1] += 1
+    device_us = sum(us for us, _ in by_name.values())
+    top_device = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
 
     pr = cProfile.Profile()
     pr.enable()
-    _decode(data, filters=filters)
+    _decode(data, backend, filters)
     pr.disable()
     s = io.StringIO()
     pstats.Stats(pr, stream=s).sort_stats("cumulative").print_stats(18)
     host = [ln for ln in s.getvalue().splitlines() if "(" in ln and "/" in ln]
-    out = dict(config=name, wall_ms=wall_us / 1e3,
+    out = dict(config=name, backend=backend, wall_ms=wall_us / 1e3,
                device_busy_ms=device_us / 1e3 if by_name else None,
                device_idle_share=1 - device_us / wall_us if by_name else None,
-               top_device_ms=[(k[:80], v / 1e3) for k, v in top_device],
+               top_device_ms=[(k[:80], us / 1e3, n) for k, (us, n) in top_device],
                host_cumulative=host)
     busy = ("not measured (the profiler saw no device events)" if not by_name
             else f"device busy {device_us / 1e3:.3f} ms, idle share "
                  f"{out['device_idle_share']:.4f}")
-    print(f"profile {name}: wall {wall_us / 1e3:.1f} ms, {busy}")
-    for k, v in out["top_device_ms"]:
-        print(f"  device {v:9.3f} ms  {k}")
+    print(f"profile {name}, backend={backend}: wall {wall_us / 1e3:.1f} ms, {busy}")
+    for k, v, n in out["top_device_ms"]:
+        print(f"  device {v:9.3f} ms in {n:3d} records  {k}")
     for ln in host:
         print("  host", ln.strip()[:150])
     return out
@@ -599,7 +793,8 @@ def main() -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
 
     t0 = time.perf_counter()
-    streams = {"config3": config3(), "config4": config4(), "config12f": config12f()}
+    streams = {"config3": config3(), "config4": config4(), "config12f": config12f(),
+               **hf_streams()}
     print(f"encode: {time.perf_counter() - t0:.1f} s, "
           f"{ {k: len(v) for k, v in streams.items()} } bytes")
     inp3 = group_inputs(streams["config3"])
@@ -617,7 +812,12 @@ def main() -> int:
     print(f"EPF skips (blocks, of all blocks): {skipped}")
     big4 = next(g for g in inp4 if g["kind"] == "mixed" and g["h8"] * g["w8"] == 65536)
     big12 = next(g for g in inp12 if g["h8"] * g["w8"] == 65536)
-    kernels = phase_kernels(inp3[0], big4, dev) + phase_filter_kernels(big12, dev)
+    # the device route's lanes (backend="device"): the eligible sections
+    hf_cfgs = ("config3", "config4", "hf_ans_2048", "hf_ctx_2048")
+    plans = {k: hf_plan(streams[k]) for k in hf_cfgs}
+    print(f"device-route lanes: { {k: len(p['lanes']) for k, p in plans.items()} }")
+    kernels = (phase_kernels(inp3[0], big4, dev) + phase_filter_kernels(big12, dev)
+               + phase_hf_kernels(plans, dev))
 
     filtered = {"reconstruct_dct8", "gaborish", "epf_fused", "xyb_to_srgb"}
     mains = [
@@ -628,11 +828,25 @@ def main() -> int:
         phase_main_path("config4", streams["config4"], filtered, filters=True),
         phase_ragged_epf(dev),
     ]
+    # the device route: B4/B5, then B1 on the LF groups it keeps on the card
+    # (and the write-back to B2/B3 on config 4's mixed groups)
+    device_want = {"config3": {"hf", "reconstruct_dct8_srgb"},
+                   "config4": {"hf", "reconstruct_dct8_srgb", "reconstruct_dct8",
+                               "xyb_to_srgb"},
+                   "hf_ans_2048": {"hf", "reconstruct_dct8_srgb"},
+                   "hf_ctx_2048": {"hf_ctx", "reconstruct_dct8_srgb"}}
+    mains += [phase_main_path(k, streams[k], device_want[k], backend="device",
+                              lanes=len(plans[k]["lanes"])) for k in hf_cfgs]
     for r in kernels:
-        r["launches"] = sum(m["launches"][r["name"]] for m in mains)
+        # an HF row counts the launches of the device-route paths of its mode
+        paths = ({f"{k}/device" for k in hf_cfgs if hf_mode(plans[k]) == r["mode"]}
+                 if "mode" in r else None)
+        r["launches"] = sum(m["launches"][r.get("counter", r["name"])] for m in mains
+                            if paths is None or m.get("path") in paths)
         assert r["launches"] > 0, f"{r['name']} never launched on the main path"
-    profiles = [phase_profile(k, v) for k, v in streams.items() if k != "config12f"]
+    profiles = [phase_profile(k, streams[k]) for k in ("config3", "config4")]
     profiles.append(phase_profile("config12f", streams["config12f"], filters=True))
+    profiles.append(phase_profile("config4", streams["config4"], backend="device"))
 
     out_dir = Path(__file__).resolve().parent / "build"
     out_dir.mkdir(exist_ok=True)

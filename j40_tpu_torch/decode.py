@@ -71,16 +71,15 @@ class Frame:
 
 # port: no "auto" planner — it chose the host plan whenever the native
 # library loaded, which hid the device.  "torch" reconstructs on the device
-# (CUDA unless the caller names another); "numpy" is the explicit host plan.
-BACKENDS = ("torch", "numpy")
+# (CUDA unless the caller names another); "device" also entropy-decodes the
+# eligible VarDCT pass-group sections there (ops/device_vardct.py); "numpy"
+# is the explicit host plan.
+BACKENDS = ("torch", "device", "numpy")
 
 
 def _check_backend(backend: str, keep_device_output: bool) -> None:
     """Refuse what the port does not run yet, naming the ROADMAP item that
     ports it (port: replaces resolve_backend)."""
-    if backend == "device":
-        raise Unsupported(message='backend="device" (on-chip entropy) is '
-                          "not ported yet: ROADMAP A.7-A.8")
     if backend not in BACKENDS:
         raise Unsupported(message=f"backend {backend!r}: use one of {BACKENDS}")
     if keep_device_output:
@@ -101,7 +100,7 @@ class Decoder:
         #: port: the torch device of the reconstruction; None means CUDA,
         #: and raises where there is none (never a silent CPU run)
         self.device = None
-        if backend == "torch":
+        if backend in ("torch", "device"):
             from .ops.kernels import resolve_device
 
             self.device = resolve_device(device)
@@ -219,6 +218,11 @@ class Decoder:
                 sections=len(toc.sections),
             )
         f, toc = prog.f, prog.toc
+        if self.backend == "device" and f.is_modular:
+            # port: the modular device lanes (kernel B6) are not ported yet;
+            # a modular frame must not quietly take the host chains
+            raise Unsupported(message='backend="device" on a modular frame is '
+                              "not ported yet: ROADMAP A.8")
         self.stats["codestream_bytes"] = self.src.available()
         t_sections = time.perf_counter()
 
@@ -313,8 +317,18 @@ class Decoder:
                 ggidx = (row // 8) * f.ggcolumns + (col // 8)
                 return ggidx in state.vardct.lf_groups
 
-            # port: the on-chip entropy lanes of backend="device" are not
-            # ported yet (ROADMAP A.7-A.8); every section takes the host chains
+            if self.backend == "device":  # a VarDCT frame: modular raised above
+                # eligible DCT8 pass-group sections upload their raw bytes
+                # and entropy-decode on the card (ops/device_vardct.py);
+                # the rest take the host chains
+                from .ops.device_vardct import try_device_hf_sections
+
+                dev_run = [s for s in pg_todo if _avail(s) and _lf_ready(s)]
+                for s in try_device_hf_sections(self, state, f, dev_run):
+                    done.add((s.pass_, s.idx))
+                pg_todo = [
+                    s for s in pg_todo if (s.pass_, s.idx) not in done
+                ]
 
             # Group the runnable pass sections into per-group chains ordered
             # by pass: two passes of the SAME group accumulate (+=) into the
@@ -348,7 +362,7 @@ class Decoder:
                 pipeline_native = native_combine_available()
             pipeline_vardct = (
                 not f.is_modular
-                and (self.backend == "torch" or pipeline_native)  # port
+                and (self.backend in ("torch", "device") or pipeline_native)  # port
                 and (f.num_lf_groups > 1 or pipeline_native)
                 and npasses == f.num_passes
             )

@@ -19,7 +19,7 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = [_PKG / "csrc" / "reconstruct.cu", _PKG / "csrc" / "filters.cu"]
+SOURCES = [_PKG / "csrc" / n for n in ("reconstruct.cu", "filters.cu", "hf.cu")]
 BUILD_DIR = _PKG.parent / "build" / "j40_tpu_torch"
 # sm_90a: Hopper; no --use_fast_math (the kernels keep IEEE fp32 division)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -105,6 +105,12 @@ def load_kernels():
             getattr(lib, fn).restype = i
         lib.j40tt_gaborish.argtypes = [p, p, i, i, p, p]
         lib.j40tt_gaborish.restype = i
+        # csrc/hf.cu
+        lib.j40tt_hf_walk.argtypes = [p, i, p, p, p, p, i, p, p, p, i, i, i, i, i, p]
+        lib.j40tt_hf_walk.restype = i
+        lib.j40tt_hf_ctx_walk.argtypes = [
+            p, i, p, p, p, p, i, p, i, p, p, p, i, p, p, i, i, i, i, i, p]
+        lib.j40tt_hf_ctx_walk.restype = i
         lib.j40tt_error_string.argtypes = [i]
         lib.j40tt_error_string.restype = ctypes.c_char_p
         lib.j40tt_tile_blocks.argtypes = []

@@ -138,6 +138,47 @@ def _pack_consts22(vs, im, f, consts) -> np.ndarray:
     )
 
 
+def _plan_aux_dct8(vs, gg, im, f, voffs, offs):
+    """Per-block dequant/CfL auxiliary planes + kernel constants of an
+    all-DCT8 LF group, blocks in raster order: (aux (6,n) f32, weights,
+    consts22); the same arrays `lf_group_inputs` gathers for such a group
+    (counterpart of combine_jax._plan_aux_dct8, used by the device-resident
+    route of ops/device_vardct.py)."""
+    n = len(voffs)
+    kx_lf = np.float32(vs.base_corr_x + vs.x_factor_lf * vs.inv_colour_factor)
+    kb_lf = np.float32(vs.base_corr_b + vs.b_factor_lf * vs.inv_colour_factor)
+    lidx = offs >> 6
+    lx = gg.llfcoeffs[0][lidx]
+    ly = gg.llfcoeffs[1][lidx]
+    lb = gg.llfcoeffs[2][lidx]
+    cy, cx = np.divmod(np.arange(n), gg.width8)
+    kx = (
+        vs.base_corr_x
+        + vs.inv_colour_factor * np.asarray(gg.xfromy)[cy // 8, cx // 8]
+    ).astype(np.float32)
+    kb = (
+        vs.base_corr_b
+        + vs.inv_colour_factor * np.asarray(gg.bfromy)[cy // 8, cx // 8]
+    ).astype(np.float32)
+    aux = np.stack([
+        (lx + ly * kx_lf).astype(np.float32),
+        ly.astype(np.float32),
+        (lb + ly * kb_lf).astype(np.float32),
+        np.asarray(gg.vb_hfmul_inv)[voffs].astype(np.float32),
+        kx, kb,
+    ])
+    consts = dict(
+        global_scale_inv=np.float32(65536.0 / vs.global_scale),
+        qm_scales=np.array(
+            [QM_SCALE[f.x_qm_scale], 1.0, QM_SCALE[f.b_qm_scale]], np.float32
+        ),
+        quant_bias=np.asarray(im.quant_bias, np.float32),
+        quant_bias_num=np.float32(im.quant_bias_num),
+    )
+    param_idx = DCT_SELECT[0][2]
+    return aux, vs.dq_weights[param_idx], _pack_consts22(vs, im, f, consts)
+
+
 def _llf_positions(dctsel: int) -> np.ndarray:
     """Canonical positions of a class's LLF coefficients: y*(2^max)+x."""
     log_rows, log_columns, _, _ = DCT_SELECT[dctsel]

@@ -892,7 +892,7 @@ class VarDCTState:
                     gmodular.channels[c].data = dst[c]
                 return
 
-        if backend == "torch":  # port: the only device backend
+        if backend in ("torch", "device"):  # port: the device backends
             # dispatch every LF group first: the runtime's async queue
             # pipelines uploads/compute/fetches across groups (matters for
             # >2048px images with several LF groups); groups whose sections

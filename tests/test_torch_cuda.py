@@ -202,3 +202,83 @@ def test_filtered_decode_on_card_vs_cpu(cuda):
                             if dev == "cuda" else set()), K.launches
         outs.append(dec.render_rgba8().astype(np.int64))
     assert np.abs(outs[0] - outs[1]).max() <= 1
+
+
+def _photo(h, w, seed):
+    """A smooth photo-like image with some grain: lanes of a few thousand
+    symbols at most, short enough for the plain versions on the CPU."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    return np.stack([
+        96 + 60 * np.sin(xx / 29) * np.cos(yy / 23) + 10 * np.sin(xx / (9 + 2 * c))
+        + rng.normal(0, 0.7, (h, w)) for c in range(3)], -1).clip(0, 255).astype(np.uint8)
+
+
+HF_STREAMS = {
+    "prefix": dict(),
+    "ans": dict(use_prefix=False),
+    "ctx": dict(use_prefix=False, coeff_clusters=5),
+}
+
+
+def _hf_plan(name):
+    """The device route's lanes of a three-section stream: (vardct state,
+    spec, ctx_mode, lanes, orders_yxb), as ops/device_vardct.py plans them."""
+    from j40_tpu_torch.ops import device_vardct as DV
+
+    data = encode_vardct(_photo(24, 600, 3), VarDCTOptions(**HF_STREAMS[name]))
+    dec = Decoder(data, device="cpu", max_passes=0)
+    dec.decode_frame(_defer_finish=True)
+    f, toc, state = dec._deferred
+    plan = DV.hf_lanes(dec, state, f, [s for s in toc.sections if s.pass_ == 0])
+    assert plan is not None and len(plan[2]) == 3 and plan[1] == (name == "ctx")
+    return (state.vardct, *plan)
+
+
+@pytest.mark.parametrize("name", list(HF_STREAMS))
+def test_hf_kernels_vs_plain(cuda, name):
+    """B4 (prefix, ANS) and B5 against their plain versions: a capped walk,
+    its resumption from the snapshot and an uncapped walk give the same
+    planes and snapshots, exactly (integer state, integer coefficients)."""
+    from j40_tpu_torch.ops import device_vardct as DV
+
+    vd, spec, ctx, lanes, orders = _hf_plan(name)
+    ncmax = max(ln.gw8 * ln.gh8 for ln in lanes)
+    results = []
+    for dev in ("cuda", "cpu"):
+        _, launch, done_row = DV.pack_hf_batch(vd, spec, lanes, orders, ctx, dev)
+        K.reset_launches()
+        out, st = launch(ncmax, cap_steps=300)
+        capped = (out.clone(), st)
+        resumed = launch(ncmax, cap_steps=300, init=st, out=out)
+        full = launch(ncmax)
+        torch.cuda.synchronize()
+        assert K.launches["hf_ctx" if ctx else "hf"] == (3 if dev == "cuda" else 0)
+        results.append([t.cpu() for t in (*capped, *resumed, *full)])
+    for a, b in zip(*results):
+        assert torch.equal(a, b)
+    st = results[0][-1]
+    assert not st[done_row][:3].eq(0).any() and not st[6].any()
+    assert not results[0][1][done_row].all()  # the cap did stop the walk
+
+
+@pytest.mark.parametrize("name", list(HF_STREAMS))
+def test_device_route_on_card_vs_cpu(cuda, name):
+    """Decoder(backend="device"): B4 or B5, then B1 on the resident LF
+    group, on the card; the same RGBA as device="cpu" and as
+    backend="torch" on the card."""
+    data = encode_vardct(_photo(24, 600, 5), VarDCTOptions(**HF_STREAMS[name]))
+    outs = []
+    for backend, dev in (("device", "cuda"), ("device", "cpu"), ("torch", "cuda")):
+        K.reset_launches()
+        dec = Decoder(data, backend=backend, device=dev, workers=4)
+        dec.decode_frame()
+        launched = {k for k, v in K.launches.items() if v}
+        want = {"reconstruct_dct8_srgb"}
+        if backend == "device":
+            want.add("hf_ctx" if name == "ctx" else "hf")
+            assert dec.stats["device_vardct"]["lanes"] == 3
+        assert launched == (want if dev == "cuda" else set()), K.launches
+        outs.append(dec.render_rgba8())
+    np.testing.assert_array_equal(outs[0], outs[1])
+    np.testing.assert_array_equal(outs[0], outs[2])

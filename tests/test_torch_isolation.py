@@ -68,6 +68,11 @@ from j40_tpu_torch.decode import Decoder
 dec = Decoder(data, device="cpu", apply_filters=True)
 dec.decode_frame()
 assert dec.render_rgba8().shape == (150, 260, 4)
+# the on-chip HF entropy route (ops/device_vardct.py, ops/hf_kernels.py)
+dec = Decoder(data, backend="device", device="cpu")
+dec.decode_frame()
+assert dec.stats["device_vardct"]["lanes"] > 0
+assert dec.render_rgba8().shape == (150, 260, 4)
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("OK")
 """
@@ -113,12 +118,14 @@ def test_no_forbidden_imports(path):
 
 def test_every_kernel_source_is_built():
     """The one kernel library is built from every CUDA source of csrc/
-    (reconstruct.cu and filters.cu), and its wrappers are in the scan above."""
+    (reconstruct.cu, filters.cu and hf.cu), and its wrappers are in the scan
+    above."""
     from j40_tpu_torch.ops import _build
 
     assert sorted(_build.SOURCES) == sorted((PORT / "csrc").glob("*.cu"))
-    assert {p.name for p in _build.SOURCES} == {"reconstruct.cu", "filters.cu"}
-    assert (PORT / "ops" / "filter_kernels.py") in set(PORT.rglob("*.py"))
+    assert {p.name for p in _build.SOURCES} == {"reconstruct.cu", "filters.cu", "hf.cu"}
+    for wrappers in ("filter_kernels.py", "hf_kernels.py"):
+        assert (PORT / "ops" / wrappers) in set(PORT.rglob("*.py"))
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
@@ -142,14 +149,20 @@ def test_no_silent_cpu():
     dict(keep_device_output=True),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_options_raise(kw):
-    """What the port does not run yet raises; nothing falls back."""
+    """What the port does not run yet raises; nothing falls back.  The
+    device backend runs VarDCT frames; a modular frame under it (the
+    modular device lanes, ROADMAP A.8) raises once its header is read,
+    instead of taking the host chains."""
     from j40_tpu_torch.decode import Decoder
+    from j40_tpu_torch.encode.encoder import encode_modular
     from j40_tpu_torch.encode.vardct_enc import encode_vardct
     from j40_tpu_torch.errors import Unsupported
 
-    data = encode_vardct(np.full((16, 16, 3), 90, np.uint8))
-    with pytest.raises(Unsupported, match="ROADMAP|use one of"):
-        Decoder(data, device="cpu", **kw)
+    encode = encode_modular if kw.get("backend") == "device" else encode_vardct
+    data = encode(np.full((16, 16, 3), 90, np.uint8))
+    with pytest.raises(Unsupported, match="ROADMAP A.8" if encode is encode_modular
+                       else "ROADMAP|use one of"):
+        Decoder(data, device="cpu", **kw).decode_frame()
 
 
 def test_apply_filters_decodes():
