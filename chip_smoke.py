@@ -17,7 +17,10 @@ which raises on failure (the script then exits non-zero):
    full-size lanes of config 4 (prefix code) and of bench.py's two
    2048x2048 HF probe streams (single-cluster ANS; 5 clusters): capped
    against their plain versions, uncapped against the host plan's
-   coefficient planes;
+   coefficient planes.  The token kernel (B6) runs on the full-size lanes
+   of the modular streams below in each table mode (per-lane rows, one
+   shared row, per-token clusters): capped against its plain version,
+   uncapped to every section's end;
 4. main path: the BASELINE VarDCT configs 3 (1024x1024, all DCT8) and 4
    (4096x3072 mixed varblocks, custom orders and dequant matrices), made
    from a seed by the port's encoder, decoded by `decode_file(data,
@@ -31,12 +34,21 @@ which raises on failure (the script then exits non-zero):
    `decode_file(data, backend="device", workers=4)` (the HF entropy of
    the eligible sections on the card) on configs 3 and 4 and the two
    probe streams, each equal to `backend="torch"` and within 1 level of
-   the host plan, with every eligible section on the HF kernels.  The
-   kernel launch counters, zeroed just before each path and read just
-   after, show which kernels each went through;
+   the host plan, with every eligible section on the HF kernels; then the
+   lossless Modular streams (BASELINE configs 1 and 2, their global-tree
+   twins, a static-tree stream; 1024x1024, made from bench.py's seeds)
+   through `decode_file(data, backend="device", workers=4)`, each equal bit
+   for bit to the host plan, with every section the port's own lane plan
+   takes on the token kernel and the torch-op wavefronts.  The kernel
+   launch counters, zeroed just before each path and read just after, show
+   which kernels each went through;
 5. profile: one warm decode of configs 3, 4 and 12F under torch.profiler
    (device busy time and idle share) and cProfile (host time by function),
-   and one of config 4 under `backend="device"`.
+   one of config 4 under `backend="device"`, and one each of the modular
+   gradient stream and the e3 stream with a global tree under
+   `backend="device"`.
+
+The streams are encoded first, in worker processes (one per core).
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the card's name and power limit; before that one {"kernels": [...]} line.
@@ -115,16 +127,78 @@ def hf_image(size: int = 2048) -> np.ndarray:
         for c in range(3)], -1).clip(0, 255).astype(np.uint8)
 
 
-def hf_streams() -> dict[str, bytes]:
+def hf_stream(clusters: int) -> bytes:
     """The HF kernels' own probe streams (bench.py _bench_hf_ctx, 2048x2048,
-    one LF group, 64 sections): single-cluster ANS (B4's rANS path) and the
+    one LF group, 64 sections): single-cluster ANS (B4's rANS path) or the
     5-cluster spec (B5)."""
     from j40_tpu_torch.encode.vardct_enc import VarDCTOptions, encode_vardct
 
-    img = hf_image()
-    return {"hf_ans_2048": encode_vardct(img, VarDCTOptions(use_prefix=False)),
-            "hf_ctx_2048": encode_vardct(img, VarDCTOptions(use_prefix=False,
-                                                            coeff_clusters=5))}
+    opts = dict(coeff_clusters=clusters) if clusters > 1 else {}
+    return encode_vardct(hf_image(), VarDCTOptions(use_prefix=False, **opts))
+
+
+def modular_stream(name: str) -> bytes:
+    """The lossless streams of the modular device lanes, 1024x1024 from
+    bench.py's image (seed 12345), 256x256 groups: 16 sections of 196,608
+    symbols each.
+
+    modular             BASELINE config 1 (bench.py:851-852): local trees,
+                        prefix code, gradient predictor
+    modular_global      the same with one global tree and code spec
+    modular_e3          BASELINE config 2 (bench.py:854-859): local e3 trees
+    modular_e3gt        bench.py:1011-1015 exactly: the e3 tree, global, rANS
+    modular_static_ctx  the 9-node static tree, rANS, complex cluster map"""
+    from j40_tpu_torch.encode.advanced import AdvancedOptions, encode_modular_advanced
+    from j40_tpu_torch.encode.encoder import EncodeOptions, encode_modular
+    from j40_tpu_torch.encode.modular_enc import branch, leaf
+
+    img = _test_image(1024, 1024)
+    if name in ("modular", "modular_global"):
+        return encode_modular(img, options=EncodeOptions(global_tree=name != "modular"))
+    # bench.py:854-859's neighbour-property tree (cjxl -e3's shape): the WP
+    # max-error property gates WP against the gradient
+    e3 = [branch(15, 0, 1, 2), leaf(6), leaf(5)]
+    # the 9-node static-property tree of tests/test_device_modular.py:133-143
+    static = [branch(0, 0, 1, 2), branch(3, 60, 3, 4), branch(2, 40, 5, 6), leaf(5),
+              leaf(1), leaf(2), branch(1, 25, 7, 8), leaf(0), leaf(5, offset=3)]
+    tree, kw = {
+        "modular_e3": (e3, {}),
+        "modular_e3gt": (e3, dict(use_prefix=False, global_tree=True)),
+        "modular_static_ctx": (static, dict(use_prefix=False, complex_cluster_map=True)),
+    }[name]
+    return encode_modular_advanced(img, options=AdvancedOptions(tree=tree, **kw))
+
+
+#: every stream of the run, by name; the slowest to encode first
+STREAMS = {
+    "modular_e3": lambda: modular_stream("modular_e3"),
+    "modular_e3gt": lambda: modular_stream("modular_e3gt"),
+    "config4": config4, "config12f": config12f,
+    "modular_static_ctx": lambda: modular_stream("modular_static_ctx"),
+    "hf_ans_2048": lambda: hf_stream(1), "hf_ctx_2048": lambda: hf_stream(5),
+    "config3": config3,
+    "modular": lambda: modular_stream("modular"),
+    "modular_global": lambda: modular_stream("modular_global"),
+}
+MODULAR = ("modular", "modular_global", "modular_e3", "modular_e3gt", "modular_static_ctx")
+
+
+def make_stream(name: str) -> bytes:
+    return STREAMS[name]()
+
+
+def encode_all() -> dict[str, bytes]:
+    """Every stream, made by the port's encoders in worker processes (spawned,
+    so that they share nothing with this process's CUDA context), one per
+    core at most."""
+    import multiprocessing as mp
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    names = list(STREAMS)
+    with ProcessPoolExecutor(max_workers=min(len(names), os.cpu_count() or 4),
+                             mp_context=mp.get_context("spawn")) as ex:
+        return dict(zip(names, ex.map(make_stream, names)))
 
 
 # bench.py _bench_device_filters' EPF parameters, for the ragged-plane path
@@ -655,6 +729,144 @@ def phase_hf_kernels(plans: dict, dev) -> list[dict]:
     return rows
 
 
+def modular_plan(data: bytes) -> dict:
+    """The modular device route's lanes of a stream, as
+    ops/device_modular.py plans them (`_prepare_lane` on every pass-group
+    section), grouped into the batches `try_device_pass_groups` launches:
+    {lanes, batches, sections}."""
+    from j40_tpu_torch.decode import Decoder
+    from j40_tpu_torch.ops import device_modular as DM
+
+    dec = Decoder(data, backend="numpy", max_passes=0)
+    dec.decode_frame(_defer_finish=True)
+    f, toc, state = dec._deferred
+    sections = [s for s in toc.sections if s.pass_ == 0]
+    lanes = DM.plan_lanes(dec, state, sections)
+    batches: dict = {}
+    for ln in lanes:
+        kind = "ctx" if ln.ctx is not None else "ntree" if ln.ntree is not None else "plain"
+        batches.setdefault((ln.spec.use_prefix_code, kind), []).append(ln)
+    return dict(lanes=lanes, batches=list(batches.values()), sections=len(sections))
+
+
+# the token kernel's rows: (row name, stream) for each table mode — per-lane
+# rows (local trees, prefix), one shared row (B6's own case; prefix and
+# rANS), per-token clusters (static tree, rANS)
+TOKEN_ROWS = (("tokens_lane", "modular"), ("tokens_shared", "modular_global"),
+              ("tokens_shared_ans", "modular_e3gt"), ("tokens_ctx", "modular_static_ctx"))
+# symbols per lane of the capped token kernel-vs-plain comparison
+TOKEN_CAP = 2000
+# least 32-bit integer operations per token: the table index (2), the rANS
+# step or prefix lookup and the bit drops (8), the hybrid-int lookups,
+# shifts and masks (8), the store (2)
+TOKEN_OPS_PER_SYMBOL = 20
+
+
+def phase_token_kernels(plans: dict, dev) -> list[dict]:
+    """The token kernel (B6) in each table mode on the main path's full-size
+    lanes: kernel and plain version on the card from the same packed inputs,
+    capped at TOKEN_CAP symbols, must give the same values, states and bit
+    positions (and the CPU's plain version too); uncapped, every lane must
+    end where its section ends, with the final rANS state 0x130000 where
+    rANS (device_modular._check_lane_end)."""
+    from j40_tpu_torch.ops import device_modular as DM
+    from j40_tpu_torch.ops import token_kernels as TKN
+    from j40_tpu_torch.ops.hf_kernels import to_device
+
+    rows = []
+    for name, cfg in TOKEN_ROWS:
+        (batch,) = plans[cfg]["batches"]
+        packed = DM.pack_lanes(batch)
+        d = to_device(packed, dev)
+        mode = ("ctx" if packed["cids"] is not None
+                else "shared" if packed["sym"].shape[0] == 1 else "lane")
+        got = TKN.launch_tokens(d, TOKEN_CAP)
+        plain = TKN.launch_tokens(d, TOKEN_CAP, decode=TKN.decode_tokens_ref)
+        torch.cuda.synchronize()
+        for a, b in zip(got, plain):
+            assert torch.equal(a, b), f"{name}: the kernel differs from the plain version"
+        vals, st, bp = TKN.launch_tokens(d)
+        st_h, bp_h = st.cpu().numpy(), bp.cpu().numpy()
+        for li, ln in enumerate(batch):
+            DM._check_lane_end(ln, ((ln.bitoff // 8) & ~1) * 8 + int(bp_h[li]),
+                               packed["use_prefix"], int(st_h[li]) & 0xFFFFFFFF)
+        nsym = sum(ln.nsym for ln in batch)
+        longest = max(ln.nsym for ln in batch)
+        ms = event_ms(lambda: TKN.launch_tokens(d), 10)
+        ms_cap = event_ms(lambda: TKN.launch_tokens(d, TOKEN_CAP), 20)
+        plain_ms = event_ms(lambda: TKN.launch_tokens(d, TOKEN_CAP,
+                                                      decode=TKN.decode_tokens_ref))
+        tables = sum(d[k].numel() * 4 for k in ("sym", "fb", "mb", "a", "lo", "lsb"))
+        b = bound(sum(len(ln.data) for ln in batch) + tables
+                  + (d["cids"].numel() * 4 if d["cids"] is not None else 0)
+                  + vals.numel() * 4 + st.numel() * 4 + bp.numel() * 4,
+                  TOKEN_OPS_PER_SYMBOL * nsym)
+        rows.append(dict(
+            name=name, route="cuda", source="j40_tpu_torch/csrc/tokens.cu",
+            replaces="j40_tpu/ops/pallas_entropy.py:312", counter="tokens",
+            paths=[f"{cfg}/device"], mode=mode,
+            shape=f"{len(batch)} lanes of {cfg} ({mode} tables, "
+                  f"{'prefix' if packed['use_prefix'] else 'rANS'}), up to "
+                  f"{max(len(ln.data) for ln in batch)} B -> {tuple(vals.shape)} int32",
+            max_abs_err=0, ms=ms, ms_at_cap=ms_cap, timer="CUDA events",
+            plain_ms=plain_ms, plain_cap=TOKEN_CAP, bound_ms=b[0], bound_by=b[1],
+            library_ms=None, library=None, symbols=nsym, symbols_longest_lane=longest,
+            ns_per_symbol=ms * 1e6 / longest,
+        ))
+        print(f"kernel {name} [{rows[-1]['shape']}]: {ms:.3f} ms uncapped ({nsym} "
+              f"symbols, longest lane {longest}, {rows[-1]['ns_per_symbol']:.1f} ns per "
+              f"symbol), {ms_cap:.4f} ms at {TOKEN_CAP} steps, plain {plain_ms:.1f} ms at "
+              f"{TOKEN_CAP} steps, bound {b[0]:.4f} ms ({b[1]}); equal to the plain "
+              f"version (capped), every lane at its section's end (uncapped)")
+    return rows
+
+
+def phase_modular_path(name: str, data: bytes, plan: dict) -> dict:
+    """A modular stream through `decode_file(data, backend="device",
+    workers=4)`: RGBA equal bit for bit to the host plan, every eligible
+    section of the port's own plan on the device lanes, the token kernel
+    launched (counters zeroed just before the decode, read just after);
+    Mpix/s beside the host plan's."""
+    from j40_tpu_torch.ops import kernels as K
+
+    _, ref = _decode(data, "numpy")
+    K.reset_launches()
+    t0 = time.perf_counter()
+    dec, rgba = _decode(data, "device")
+    first_s = time.perf_counter() - t0
+    launches = dict(K.launches)
+    assert np.array_equal(rgba, ref), f"{name}: device route != host plan"
+    dm = dict(dec.stats["device_modular"])
+    taken = sum(dm.get(k, 0) for k in ("lanes", "ctx_lanes", "ntree_lanes"))
+    assert taken == len(plan["lanes"]) > 0, f"{name}: {dm} against {len(plan['lanes'])}"
+    assert launches["tokens"] == len(plan["batches"]), f"{name}: launches {launches}"
+
+    def mpix(backend, reps):
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            _decode(data, backend)
+            ts.append(time.perf_counter() - t0)
+        return rgba.shape[0] * rgba.shape[1] / 1e6 / statistics.median(ts)
+
+    # the WP tree wavefront's decodes take many seconds (hundreds of small
+    # launches per diagonal): one timed decode of those, three of the others
+    reps = 3 if first_s < 5 else 1
+    out = dict(config=name, backend="device", path=f"{name}/device",
+               size=f"{rgba.shape[1]}x{rgba.shape[0]}", stream_bytes=len(data),
+               sections=plan["sections"], launches=launches, device_modular=dm,
+               first_decode_s=first_s, timed_decodes=reps, mpix_s=mpix("device", reps),
+               host_plan_mpix_s=mpix("numpy", 3), max_abs_diff=0)
+    out["target_met"] = out["mpix_s"] >= out["host_plan_mpix_s"]
+    print(f"main path {name}, backend=device ({out['size']}, {len(data)} B, "
+          f"{taken} of {plan['sections']} sections on the card): {out['mpix_s']:.3f} "
+          f"Mpix/s on the card (median of {reps}), host plan {out['host_plan_mpix_s']:.2f} "
+          f"Mpix/s, target_met {out['target_met']}, launches "
+          f"{ {k: v for k, v in launches.items() if v} }, route {dm}, equal to the "
+          f"host plan")
+    return out
+
+
 def _decode(data: bytes, backend: str = "torch", filters: bool = False):
     """decode_file, or with the restoration filters the Decoder calls the
     CLI makes (decode_file has no filter option): (decoder, RGBA8)."""
@@ -728,10 +940,13 @@ def phase_main_path(name: str, data: bytes, want: set[str], filters: bool = Fals
 
 
 def phase_profile(name: str, data: bytes, filters: bool = False,
-                  backend: str = "torch") -> dict:
+                  backend: str = "torch", cpu_events: bool = True,
+                  warm: bool = True) -> dict:
     """Where one warm decode's time goes: device time by kernel and copy
     (torch.profiler, CUPTI) against the wall time, and the host functions
-    by cumulative time (cProfile, a separate decode: it slows Python)."""
+    by cumulative time (cProfile, a separate decode: it slows Python).
+    `cpu_events=False` records the device activity alone; `warm=False`
+    skips the warm-up decode (for a stream the main path decoded)."""
     import cProfile
     import io
     import pstats
@@ -739,8 +954,10 @@ def phase_profile(name: str, data: bytes, filters: bool = False,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    _decode(data, backend, filters)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    if warm:
+        _decode(data, backend, filters)
+    acts = [ProfilerActivity.CPU] * cpu_events + [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         # a session may lose its first device record (one of config 4's
         # two HF launches, in three runs): spend it on a tiny kernel
         torch.ones(1, device="cuda").add_(1)
@@ -766,13 +983,14 @@ def phase_profile(name: str, data: bytes, filters: bool = False,
     pstats.Stats(pr, stream=s).sort_stats("cumulative").print_stats(18)
     host = [ln for ln in s.getvalue().splitlines() if "(" in ln and "/" in ln]
     out = dict(config=name, backend=backend, wall_ms=wall_us / 1e3,
+               device_records=sum(n for _, n in by_name.values()),
                device_busy_ms=device_us / 1e3 if by_name else None,
                device_idle_share=1 - device_us / wall_us if by_name else None,
                top_device_ms=[(k[:80], us / 1e3, n) for k, (us, n) in top_device],
                host_cumulative=host)
     busy = ("not measured (the profiler saw no device events)" if not by_name
-            else f"device busy {device_us / 1e3:.3f} ms, idle share "
-                 f"{out['device_idle_share']:.4f}")
+            else f"device busy {device_us / 1e3:.3f} ms in {out['device_records']} "
+                 f"records, idle share {out['device_idle_share']:.4f}")
     print(f"profile {name}, backend={backend}: wall {wall_us / 1e3:.1f} ms, {busy}")
     for k, v, n in out["top_device_ms"]:
         print(f"  device {v:9.3f} ms in {n:3d} records  {k}")
@@ -788,13 +1006,17 @@ def main() -> int:
     import j40_tpu_torch  # noqa: F401  (fails outside the checkout)
 
     t_start = time.perf_counter()
+
+    def lap(label: str) -> None:
+        print(f"[{time.perf_counter() - t_start:.1f} s] {label} done")
+
     card = phase_card()
     build = phase_build()
+    lap("build")
     dev = torch.device("cuda", torch.cuda.current_device())
 
     t0 = time.perf_counter()
-    streams = {"config3": config3(), "config4": config4(), "config12f": config12f(),
-               **hf_streams()}
+    streams = encode_all()
     print(f"encode: {time.perf_counter() - t0:.1f} s, "
           f"{ {k: len(v) for k, v in streams.items()} } bytes")
     inp3 = group_inputs(streams["config3"])
@@ -816,8 +1038,14 @@ def main() -> int:
     hf_cfgs = ("config3", "config4", "hf_ans_2048", "hf_ctx_2048")
     plans = {k: hf_plan(streams[k]) for k in hf_cfgs}
     print(f"device-route lanes: { {k: len(p['lanes']) for k, p in plans.items()} }")
+    # the modular device route's lanes: every eligible section, by batch
+    mplans = {k: modular_plan(streams[k]) for k in MODULAR}
+    print("modular lanes (of sections): "
+          f"{ {k: (len(p['lanes']), p['sections']) for k, p in mplans.items()} }")
+    lap("encode and plans")
     kernels = (phase_kernels(inp3[0], big4, dev) + phase_filter_kernels(big12, dev)
-               + phase_hf_kernels(plans, dev))
+               + phase_hf_kernels(plans, dev) + phase_token_kernels(mplans, dev))
+    lap("kernels")
 
     filtered = {"reconstruct_dct8", "gaborish", "epf_fused", "xyb_to_srgb"}
     mains = [
@@ -837,17 +1065,27 @@ def main() -> int:
                    "hf_ctx_2048": {"hf_ctx", "reconstruct_dct8_srgb"}}
     mains += [phase_main_path(k, streams[k], device_want[k], backend="device",
                               lanes=len(plans[k]["lanes"])) for k in hf_cfgs]
+    # the modular device lanes: the token kernel, then the torch-op wavefronts
+    lap("VarDCT main paths")
+    mains += [phase_modular_path(k, streams[k], mplans[k]) for k in MODULAR]
+    lap("modular main paths")
     for r in kernels:
-        # an HF row counts the launches of the device-route paths of its mode
-        paths = ({f"{k}/device" for k in hf_cfgs if hf_mode(plans[k]) == r["mode"]}
-                 if "mode" in r else None)
+        # an HF row counts the launches of the device-route paths of its
+        # mode, a token row those of its own stream's
+        paths = r.get("paths")
+        if paths is None and "mode" in r:
+            paths = [f"{k}/device" for k in hf_cfgs if hf_mode(plans[k]) == r["mode"]]
         r["launches"] = sum(m["launches"][r.get("counter", r["name"])] for m in mains
                             if paths is None or m.get("path") in paths)
         assert r["launches"] > 0, f"{r['name']} never launched on the main path"
     profiles = [phase_profile(k, streams[k]) for k in ("config3", "config4")]
     profiles.append(phase_profile("config12f", streams["config12f"], filters=True))
     profiles.append(phase_profile("config4", streams["config4"], backend="device"))
+    # device records only: the wavefronts launch many small kernels
+    profiles += [phase_profile(k, streams[k], backend="device", cpu_events=False,
+                               warm=False) for k in ("modular", "modular_e3gt")]
 
+    lap("profiles")
     out_dir = Path(__file__).resolve().parent / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
@@ -856,7 +1094,9 @@ def main() -> int:
         seconds=time.perf_counter() - t_start), indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))
+    # the entropy rows add their rate: ns per symbol of the longest lane
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + ("ns_per_symbol",) if k in r}
+                                  for r in kernels]}))
     print(card["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["kind"], "count": card["count"]}}))

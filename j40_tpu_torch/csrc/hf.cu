@@ -51,6 +51,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "entropy.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;  // stage the tables; thread 0 then walks
@@ -58,41 +60,8 @@ constexpr int kNat = 3 * 64;   // natural position per (XYB slot, order index)
 constexpr int kAnsTab = 512;   // 2 records x 256 buckets at most
 constexpr int kRing = 3 * 32;  // nonzero counts of the row above, per channel
 constexpr int kRingRow = 16;   // first ring row of the B5 snapshot
-constexpr int kSmemDefault = 48 * 1024;
 
 enum Mode { kPrefix = 0, kAns = 1 };
-
-// LSB-first bit buffer over one lane's 16-bit words; zeros past the end, as
-// the host reader pads a section that runs short.
-struct Bits {
-  const uint16_t* w;
-  int nw;
-  int pos;  // next word to load
-  int n;    // valid bits in buf
-  uint64_t buf;
-
-  __device__ __forceinline__ void refill() {
-    while (n <= 48) {
-      const uint64_t v = pos < nw ? w[pos] : 0;
-      buf |= v << n;
-      ++pos;
-      n += 16;
-    }
-  }
-  __device__ __forceinline__ void seek(int bitpos) {
-    pos = bitpos >> 4;
-    n = 0;
-    buf = 0;
-    refill();
-    drop(bitpos & 15);
-  }
-  __device__ __forceinline__ uint32_t peek() const { return (uint32_t)buf; }
-  __device__ __forceinline__ void drop(int k) {
-    buf >>= k;
-    n -= k;
-  }
-  __device__ __forceinline__ int bitpos() const { return pos * 16 - n; }
-};
 
 struct Hybrid {
   int lsb, split, bits, base_mid, msb;
@@ -336,15 +305,6 @@ __global__ void __launch_bounds__(kThreads)
   st[12 * L + l] = (w.k >= nc || w.err != 0) ? 1 : 0;
   for (int r = 13; r < kRingRow; ++r) st[r * L + l] = 0;
   for (int i = 0; i < kRing; ++i) st[(kRingRow + i) * L + l] = ring[i];
-}
-
-// Dynamic shared memory above 48 KB needs the kernel's opt-in (the tables
-// the packers allow stay below it: 33.5 KB for B4, 43.4 KB for B5).
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= kSmemDefault) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace

@@ -72,8 +72,9 @@ class Frame:
 # port: no "auto" planner — it chose the host plan whenever the native
 # library loaded, which hid the device.  "torch" reconstructs on the device
 # (CUDA unless the caller names another); "device" also entropy-decodes the
-# eligible VarDCT pass-group sections there (ops/device_vardct.py); "numpy"
-# is the explicit host plan.
+# eligible VarDCT and Modular pass-group sections there
+# (ops/device_vardct.py, ops/device_modular.py); "numpy" is the explicit
+# host plan.
 BACKENDS = ("torch", "device", "numpy")
 
 
@@ -218,11 +219,6 @@ class Decoder:
                 sections=len(toc.sections),
             )
         f, toc = prog.f, prog.toc
-        if self.backend == "device" and f.is_modular:
-            # port: the modular device lanes (kernel B6) are not ported yet;
-            # a modular frame must not quietly take the host chains
-            raise Unsupported(message='backend="device" on a modular frame is '
-                              "not ported yet: ROADMAP A.8")
         self.stats["codestream_bytes"] = self.src.available()
         t_sections = time.perf_counter()
 
@@ -317,7 +313,21 @@ class Decoder:
                 ggidx = (row // 8) * f.ggcolumns + (col // 8)
                 return ggidx in state.vardct.lf_groups
 
-            if self.backend == "device":  # a VarDCT frame: modular raised above
+            if self.backend == "device" and f.is_modular:
+                # the modular device lanes: eligible pass-group sections
+                # decode on the card, one lane per section (the token
+                # kernel, then the wavefronts as torch ops;
+                # ops/device_modular.py); the rest take the host chains
+                from .ops.device_modular import try_device_pass_groups
+
+                dev_run = [s for s in pg_todo if _avail(s)]
+                for s in try_device_pass_groups(self, state, f, dev_run):
+                    done.add((s.pass_, s.idx))
+                pg_todo = [
+                    s for s in pg_todo if (s.pass_, s.idx) not in done
+                ]
+
+            if self.backend == "device" and not f.is_modular:
                 # eligible DCT8 pass-group sections upload their raw bytes
                 # and entropy-decode on the card (ops/device_vardct.py);
                 # the rest take the host chains

@@ -19,7 +19,10 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = [_PKG / "csrc" / n for n in ("reconstruct.cu", "filters.cu", "hf.cu")]
+SOURCES = [_PKG / "csrc" / n
+           for n in ("reconstruct.cu", "filters.cu", "hf.cu", "tokens.cu")]
+#: headers the sources include (hashed with them)
+HEADERS = [_PKG / "csrc" / "entropy.cuh"]
 BUILD_DIR = _PKG.parent / "build" / "j40_tpu_torch"
 # sm_90a: Hopper; no --use_fast_math (the kernels keep IEEE fp32 division)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -46,7 +49,7 @@ def nvcc_path() -> str:
 def build() -> Path:
     """Compile csrc/*.cu into one library unless this exact build exists."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in SOURCES:
+    for s in SOURCES + HEADERS:
         h.update(s.name.encode() + b"\0" + s.read_bytes())
     tag = h.hexdigest()[:12]
     out = BUILD_DIR / f"libj40tt_{tag}.so"
@@ -111,6 +114,10 @@ def load_kernels():
         lib.j40tt_hf_ctx_walk.argtypes = [
             p, i, p, p, p, p, i, p, i, p, p, p, i, p, p, i, i, i, i, i, p]
         lib.j40tt_hf_ctx_walk.restype = i
+        # csrc/tokens.cu
+        lib.j40tt_tokens.argtypes = [p, i, p, p, p, p, i, p, p, p, p, p, p,
+                                     i, i, i, i, i, p, i, p, i, p]
+        lib.j40tt_tokens.restype = i
         lib.j40tt_error_string.argtypes = [i]
         lib.j40tt_error_string.restype = ctypes.c_char_p
         lib.j40tt_tile_blocks.argtypes = []

@@ -43,7 +43,7 @@ from .device_entropy import (
     pack_alias_buckets,
     pack_prefix_lut,
     pack_streams,
-    spec_is_device_simple,
+    spec_is_pallas_simple,
 )
 
 YXB2XYB = (1, 0, 2)
@@ -53,7 +53,7 @@ MAX_LANES = 128
 #: snapshot rows (see the module docstring)
 ST_ROWS, CTX_ST_ROWS = 8, 112
 DONE_ROW, CTX_DONE_ROW, RING_ROW = 7, 12, 16
-#: widest single-cluster prefix LUT (spec_is_device_simple) and the largest
+#: widest single-cluster prefix LUT (spec_is_pallas_simple) and the largest
 #: B5 tables (spec_is_device_ctx): what the kernels stage in shared memory
 MAX_PREFIX_WIDTH = 13
 MAX_CTX_AB, MAX_CTX_CMAP, CMAP_PAD = 8192, 8192, 16
@@ -70,7 +70,7 @@ def hard_bound(ncells) -> int:
 
 def hf_spec_is_device_simple(spec) -> bool:
     """Single-cluster, LZ77-free coefficient spec (context-free symbols)."""
-    return spec_is_device_simple(spec)
+    return spec_is_pallas_simple(spec)
 
 
 def spec_is_device_ctx(spec) -> bool:

@@ -26,10 +26,12 @@ from ..vardct.dct import inverse_dct2d
 from . import reconstruct as R
 
 #: kernel launches since the last reset_launches(), by wrapper name (the
-#: filter wrappers of ops/filter_kernels.py and the HF entropy wrappers of
-#: ops/hf_kernels.py count here too)
+#: filter wrappers of ops/filter_kernels.py, the HF entropy wrappers of
+#: ops/hf_kernels.py and the token wrapper of ops/token_kernels.py count
+#: here too)
 launches = {"reconstruct_dct8_srgb": 0, "reconstruct_dct8": 0, "xyb_to_srgb": 0,
-            "epf_step": 0, "epf_fused": 0, "gaborish": 0, "hf": 0, "hf_ctx": 0}
+            "epf_step": 0, "epf_fused": 0, "gaborish": 0, "hf": 0, "hf_ctx": 0,
+            "tokens": 0}
 _launch_lock = threading.Lock()
 
 

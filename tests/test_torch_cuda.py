@@ -282,3 +282,153 @@ def test_device_route_on_card_vs_cpu(cuda, name):
         outs.append(dec.render_rgba8())
     np.testing.assert_array_equal(outs[0], outs[1])
     np.testing.assert_array_equal(outs[0], outs[2])
+
+
+def _lossless(h, w, seed=7):
+    rng = np.random.default_rng(seed)
+    return (np.cumsum(np.cumsum(rng.integers(-2, 3, size=(h, w, 3)), 0), 1)
+            % 256).astype(np.uint8)
+
+
+#: 9-node static-property tree of tests/test_device_modular.py:133-143
+def _static_tree():
+    from j40_tpu_torch.encode.modular_enc import branch, leaf
+
+    return [branch(0, 0, 1, 2), branch(3, 60, 3, 4), branch(2, 10, 5, 6), leaf(5),
+            leaf(1), leaf(2), branch(1, 25, 7, 8), leaf(0), leaf(5, offset=3)]
+
+
+def _modular(name):
+    """Small lossless streams of 128-pixel groups, one per token mode and
+    lane kind: local trees give each lane its own table row, global trees
+    one shared row; static trees per-token clusters; the e3 tree the
+    in-wavefront walk."""
+    from j40_tpu_torch.encode.advanced import AdvancedOptions, encode_modular_advanced
+    from j40_tpu_torch.encode.encoder import EncodeOptions, encode_modular
+    from j40_tpu_torch.encode.modular_enc import branch, leaf
+
+    img = _lossless(16, 136)
+    kw = dict(group_size_shift=7)
+    if name.startswith("plain"):
+        return encode_modular(img, options=EncodeOptions(
+            use_prefix="prefix" in name, global_tree="global" in name, **kw))
+    tree = {"static": _static_tree(), "e3": [branch(15, 0, 1, 2), leaf(6), leaf(5)],
+            "wp": [leaf(6)]}[name.split("_")[0]]
+    return encode_modular_advanced(img, options=AdvancedOptions(
+        tree=tree, use_prefix="prefix" in name, global_tree="global" in name,
+        complex_cluster_map=name.startswith("static"), **kw))
+
+
+MODULAR = ["plain_prefix_local", "plain_ans_local", "plain_prefix_global",
+           "plain_ans_global", "static_prefix", "static_ans", "e3_ans_global",
+           "wp_prefix"]
+
+
+def _lane_batches(data):
+    """The device route's lane batches of a stream, as
+    ops/device_modular.try_device_pass_groups groups them."""
+    from j40_tpu_torch.ops import device_modular as DM
+
+    dec = Decoder(data, backend="numpy", max_passes=0)
+    dec.decode_frame(_defer_finish=True)
+    f, toc, state = dec._deferred
+    lanes = DM.plan_lanes(dec, state, [s for s in toc.sections if s.pass_ == 0])
+    kinds = {}
+    for ln in lanes:
+        kind = "ctx" if ln.ctx is not None else "ntree" if ln.ntree is not None else "plain"
+        kinds.setdefault((ln.spec.use_prefix_code, kind), []).append(ln)
+    return list(kinds.values())
+
+
+@pytest.mark.parametrize("name", MODULAR)
+def test_token_kernel_vs_plain(cuda, name):
+    """The token kernel (B6) against its plain version, on the card and on
+    the CPU, from the same packed inputs: shared rows (global trees),
+    per-lane rows (local trees) and per-token clusters (static trees),
+    prefix and rANS; uncapped, and capped below the lanes' counts."""
+    from j40_tpu_torch.ops import device_modular as DM
+    from j40_tpu_torch.ops import token_kernels as TKN
+    from j40_tpu_torch.ops.hf_kernels import to_device
+
+    batches = _lane_batches(_modular(name))
+    assert batches
+    for lanes in batches:
+        packed = DM.pack_lanes(lanes)
+        if "global" in name:
+            assert packed["sym"].shape[0] == 1
+        cap = min(ln.nsym for ln in lanes) // 2
+        for n_steps in (None, cap):
+            K.reset_launches()
+            d = to_device(packed, cuda)
+            got = TKN.launch_tokens(d, n_steps)
+            plain = TKN.launch_tokens(d, n_steps, decode=TKN.decode_tokens_ref)
+            cpu = TKN.launch_tokens(to_device(packed, "cpu"), n_steps)
+            torch.cuda.synchronize()
+            assert K.launches["tokens"] == 1
+            for a, b, c in zip(got, plain, cpu):
+                assert torch.equal(a.cpu(), b.cpu()) and torch.equal(a.cpu(), c)
+
+
+@pytest.mark.parametrize("name", MODULAR)
+def test_modular_device_route_on_card_vs_cpu(cuda, name):
+    """Decoder(backend="device") on a Modular stream: the token kernel and
+    the torch-op wavefronts on the card give device="cpu"'s RGBA and the
+    host plan's, bit for bit, with every eligible section on the card."""
+    data = _modular(name)
+    lanes = sum(len(b) for b in _lane_batches(data))
+    _, host = _decode_rgba(data, backend="numpy")
+    for dev in ("cuda", "cpu"):
+        K.reset_launches()
+        dec, rgba = _decode_rgba(data, backend="device", device=dev, workers=4)
+        assert K.launches["tokens"] == (len(_lane_batches(data)) if dev == "cuda" else 0)
+        dm = dec.stats["device_modular"]
+        assert dm.get("lanes", 0) + dm.get("ctx_lanes", 0) + dm.get("ntree_lanes", 0) == lanes
+        np.testing.assert_array_equal(rgba, host)
+
+
+def _decode_rgba(data, **kw):
+    dec = Decoder(data, **kw)
+    dec.decode_frame()
+    return dec, dec.render_rgba8()
+
+
+def test_token_kernel_rows_past_shared_memory(cuda):
+    """A table row larger than a block's shared memory (two clusters of a
+    15-bit prefix code: 2 x 2^15 entries, 256 KB) is read from global
+    memory: the kernel still equals its plain version."""
+    from j40_tpu_torch.encode.bitwriter import BitWriter
+    from j40_tpu_torch.encode.entropy import EntropyEncoder
+    from j40_tpu_torch.entropy.code import read_code_spec
+    from j40_tpu_torch.io.bits import BitReader
+    from j40_tpu_torch.ops import token_kernels as TKN
+    from j40_tpu_torch.ops.hf_kernels import to_device
+
+    fib = [1, 1]
+    while len(fib) < 20:
+        fib.append(fib[-1] + fib[-2])
+    rng = np.random.default_rng(4)
+    deep = np.concatenate([np.full(c, i) for i, c in enumerate(fib)])
+    rng.shuffle(deep)  # a 15-bit-deep prefix code in cluster 0
+    vals = np.concatenate([deep, rng.integers(0, 300, size=4000)])
+    ctxs = np.concatenate([np.zeros(len(deep), np.int64), np.ones(4000, np.int64)])
+    order = rng.permutation(len(vals))
+    vals, ctxs = vals[order], ctxs[order]
+    enc = EntropyEncoder(2, use_prefix=True, cluster_map=[0, 1])
+    enc.add_arrays(ctxs, vals)
+    w = BitWriter()
+    enc.write(w)
+    data = w.finish()
+    r = BitReader(data)
+    spec = read_code_spec(r, 2)
+    assert max(cl.prefix.max_len for cl in spec.clusters) == 15
+    packed = TKN.build_lane_inputs([(data, r.bits_consumed)], [len(vals)], [spec],
+                                   cids=[np.asarray(spec.cluster_map)[ctxs]])
+    assert packed["sym"].nbytes > 227 * 1024
+    K.reset_launches()
+    got = TKN.launch_tokens(to_device(packed, cuda))
+    want = TKN.launch_tokens(to_device(packed, "cpu"))
+    torch.cuda.synchronize()
+    assert K.launches["tokens"] == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    np.testing.assert_array_equal(got[0].cpu().numpy()[0], vals)

@@ -21,7 +21,7 @@ from j40_tpu.decode import Decoder as JDecoder
 from j40_tpu_torch.decode import Decoder as TDecoder
 from j40_tpu_torch.encode.encoder import encode_modular
 from j40_tpu_torch.encode.vardct_enc import VarDCTOptions, encode_vardct, encode_vardct_mixed
-from j40_tpu_torch.errors import J40Error, Unsupported
+from j40_tpu_torch.errors import J40Error
 from j40_tpu_torch.ops import kernels as TK
 
 
@@ -168,6 +168,12 @@ def test_corrupt_section_raises_as_the_host(name, where):
 
 
 def test_modular_frame_raises():
-    data = encode_modular(_smooth(16, 264))
-    with pytest.raises(Unsupported, match="ROADMAP A.8"):
-        _decode(TDecoder, data, backend="device", device="cpu")
+    """A modular frame under the device backend, once refused, now takes
+    the modular device lanes (tests/test_torch_modular_device.py holds them
+    in full): it decodes to the host plan's pixels and raises nothing."""
+    from j40_tpu_torch.encode.encoder import EncodeOptions
+
+    data = encode_modular(_smooth(16, 264), options=EncodeOptions(group_size_shift=7))
+    dec, got = _decode(TDecoder, data, backend="device", device="cpu")
+    assert dec.stats["device_modular"]["lanes"] == 3
+    np.testing.assert_array_equal(got, _decode(TDecoder, data, backend="numpy")[1])

@@ -416,7 +416,9 @@ def test_host_packers_match_jax(name):
     spec, jspec = ts.vardct.coeff_codespec[0], js.vardct.coeff_codespec[0]
     assert HK.hf_spec_is_device_simple(spec) == JPH.hf_spec_is_device_simple(jspec)
     assert HK.spec_is_device_ctx(spec) == JPH.spec_is_pallas_ctx(jspec)
-    assert DE.spec_is_device_simple(spec) == JPE.spec_is_pallas_simple(jspec)
+    assert DE.spec_is_pallas_simple(spec) == JPE.spec_is_pallas_simple(jspec)
+    assert DE.spec_is_device_simple(spec) == JDE.spec_is_device_simple(jspec)
+    assert DE.spec_is_device_multi(spec) == JDE.spec_is_device_multi(jspec)
     for cl, jcl in zip(spec.clusters, jspec.clusters, strict=True):
         alpha = 1 << spec.log_alpha_size
         for a, b in zip(DE.hybrid_luts(cl.config, alpha), JDE.hybrid_luts(jcl.config, alpha)):

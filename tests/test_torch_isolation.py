@@ -73,6 +73,13 @@ dec = Decoder(data, backend="device", device="cpu")
 dec.decode_frame()
 assert dec.stats["device_vardct"]["lanes"] > 0
 assert dec.render_rgba8().shape == (150, 260, 4)
+# the modular device lanes (ops/device_modular.py, ops/token_kernels.py)
+from j40_tpu_torch.encode.encoder import EncodeOptions
+data = encode_modular(img[:16, :136], options=EncodeOptions(group_size_shift=7))
+dec = Decoder(data, backend="device", device="cpu")
+dec.decode_frame()
+assert dec.stats["device_modular"]["lanes"] == 2
+assert dec.render_rgba8().shape == (16, 136, 4)
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("OK")
 """
@@ -118,13 +125,16 @@ def test_no_forbidden_imports(path):
 
 def test_every_kernel_source_is_built():
     """The one kernel library is built from every CUDA source of csrc/
-    (reconstruct.cu, filters.cu and hf.cu), and its wrappers are in the scan
-    above."""
+    (reconstruct.cu, filters.cu, hf.cu and tokens.cu, hashed with the
+    headers they include), and its wrappers are in the scan above."""
     from j40_tpu_torch.ops import _build
 
     assert sorted(_build.SOURCES) == sorted((PORT / "csrc").glob("*.cu"))
-    assert {p.name for p in _build.SOURCES} == {"reconstruct.cu", "filters.cu", "hf.cu"}
-    for wrappers in ("filter_kernels.py", "hf_kernels.py"):
+    assert {p.name for p in _build.SOURCES} == {"reconstruct.cu", "filters.cu", "hf.cu",
+                                                "tokens.cu"}
+    assert sorted(_build.HEADERS) == sorted((PORT / "csrc").glob("*.cuh"))
+    for wrappers in ("filter_kernels.py", "hf_kernels.py", "token_kernels.py",
+                     "device_modular.py"):
         assert (PORT / "ops" / wrappers) in set(PORT.rglob("*.py"))
 
 
@@ -150,18 +160,26 @@ def test_no_silent_cpu():
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_options_raise(kw):
     """What the port does not run yet raises; nothing falls back.  The
-    device backend runs VarDCT frames; a modular frame under it (the
-    modular device lanes, ROADMAP A.8) raises once its header is read,
-    instead of taking the host chains."""
+    device backend, which once refused modular frames, now decodes them:
+    its case checks that a modular frame's sections go through the device
+    lanes (ROADMAP A.8) and give the host plan's pixels."""
     from j40_tpu_torch.decode import Decoder
-    from j40_tpu_torch.encode.encoder import encode_modular
+    from j40_tpu_torch.encode.encoder import EncodeOptions, encode_modular
     from j40_tpu_torch.encode.vardct_enc import encode_vardct
     from j40_tpu_torch.errors import Unsupported
 
-    encode = encode_modular if kw.get("backend") == "device" else encode_vardct
-    data = encode(np.full((16, 16, 3), 90, np.uint8))
-    with pytest.raises(Unsupported, match="ROADMAP A.8" if encode is encode_modular
-                       else "ROADMAP|use one of"):
+    if kw.get("backend") == "device":
+        data = encode_modular(np.full((16, 136, 3), 90, np.uint8),
+                              options=EncodeOptions(group_size_shift=7))
+        dec = Decoder(data, device="cpu", **kw)
+        dec.decode_frame()
+        assert dec.stats["device_modular"]["lanes"] == 2
+        host = Decoder(data, backend="numpy")
+        host.decode_frame()
+        np.testing.assert_array_equal(dec.render_rgba8(), host.render_rgba8())
+        return
+    data = encode_vardct(np.full((16, 16, 3), 90, np.uint8))
+    with pytest.raises(Unsupported, match="ROADMAP|use one of"):
         Decoder(data, device="cpu", **kw).decode_frame()
 
 
