@@ -19,8 +19,14 @@ which raises on failure (the script then exits non-zero):
    against their plain versions, uncapped against the host plan's
    coefficient planes.  The token kernel (B6) runs on the full-size lanes
    of the modular streams below in each table mode (per-lane rows, one
-   shared row, per-token clusters): capped against its plain version,
-   uncapped to every section's end;
+   shared row, per-token clusters, and the e3 tree's prefix lanes): capped
+   against its plain version, uncapped to every section's end.  Each
+   entropy row names its design (sync: the self-synchronising decode of
+   prefix lanes; serial: one thread per lane), the sync statistics and
+   the symbols decoded per second over all lanes.  Then the flat-content
+   probes: B6 and B4 on a screenshot-like page, B6 also through its serial
+   design on the same lanes (in build/chip_smoke.json, not on the kernels
+   line);
 4. main path: the BASELINE VarDCT configs 3 (1024x1024, all DCT8) and 4
    (4096x3072 mixed varblocks, custom orders and dequant matrices), made
    from a seed by the port's encoder, decoded by `decode_file(data,
@@ -169,6 +175,31 @@ def modular_stream(name: str) -> bytes:
     return encode_modular_advanced(img, options=AdvancedOptions(tree=tree, **kw))
 
 
+def flat_image(size: int = 1024, seed: int = 5) -> np.ndarray:
+    """A screenshot-like page: a light background with solid panels, rows of
+    text-like dark strokes, and bench.py's image as a photo in one quarter."""
+    rng = np.random.default_rng(seed)
+    img = np.full((size, size, 3), 245, np.uint8)
+    for _ in range(12):
+        y, x = rng.integers(0, size - 64, 2)
+        h, w = rng.integers(32, 256, 2)
+        img[y:y + h, x:x + w] = rng.integers(0, 256, 3)
+    for y in range(size // 2 + 8, size - 24, 12):
+        for x in rng.integers(16, size - 16, size // 24):
+            img[y:y + 8, x:x + rng.integers(2, 6)] = 30
+    img[:size // 2, :size // 2] = _test_image(size // 2, size // 2)
+    return img
+
+
+def flat_stream(name: str) -> bytes:
+    """The flat-content probes (phase_flat_probes): the screenshot-like page
+    as BASELINE config 1 (modular_flat) and as config 3 (vardct_flat)."""
+    from j40_tpu_torch.encode.encoder import encode_modular
+    from j40_tpu_torch.encode.vardct_enc import encode_vardct
+
+    return (encode_modular if name == "modular_flat" else encode_vardct)(flat_image())
+
+
 #: every stream of the run, by name; the slowest to encode first
 STREAMS = {
     "modular_e3": lambda: modular_stream("modular_e3"),
@@ -179,6 +210,8 @@ STREAMS = {
     "config3": config3,
     "modular": lambda: modular_stream("modular"),
     "modular_global": lambda: modular_stream("modular_global"),
+    "modular_flat": lambda: flat_stream("modular_flat"),
+    "vardct_flat": lambda: flat_stream("vardct_flat"),
 }
 MODULAR = ("modular", "modular_global", "modular_e3", "modular_e3gt", "modular_static_ctx")
 
@@ -662,6 +695,63 @@ def event_ms(fn, reps: int = 1) -> float:
     return a.elapsed_time(b) / reps
 
 
+#: name fragments of the entropy kernels (csrc/hf.cu, tokens.cu, prefix_sync.cuh)
+ENTROPY_KERNELS = ("sync_", "tokens_", "hf_")
+
+
+def kernel_split(fn, strict: bool) -> dict[str, float]:
+    """Device ms per call of each entropy kernel `fn` launches: the median of
+    that kernel's CUPTI records over REPS calls after warm-up.  Each kernel
+    runs once a call, so a record that the profiler loses (as CUPTI
+    sometimes does) does not shift the others.  `strict`: fail when a
+    kernel lost more than two records."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            fn()
+        torch.cuda.synchronize()
+    recs: dict[str, list[float]] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and any(k in e.name for k in ENTROPY_KERNELS):
+            short = e.name.replace("(anonymous namespace)::", "").split("(")[0].split()[-1]
+            recs.setdefault(short, []).append((e.time_range.end - e.time_range.start) / 1e3)
+    assert not strict or recs and all(len(v) >= REPS - 2 for v in recs.values()), \
+        {k: len(v) for k, v in recs.items()}
+    return {k: statistics.median(v) for k, v in recs.items()}
+
+
+def entropy_ms(fn, design: str) -> tuple[float, str, float, dict]:
+    """Device time of one uncapped entropy call, its timer, the time between
+    CUDA events around 10 calls, and the device time by kernel.  The sync
+    design's call is four or five short launches: CUPTI times them (between
+    events the host's launch path would count, and the wrapper's input
+    checks); a serial call is one launch of milliseconds, timed between
+    events (CUPTI has lost records of such launches)."""
+    ev = event_ms(fn, 10)
+    split = kernel_split(fn, strict=design == "sync")
+    if design == "sync":
+        return sum(split.values()), "CUPTI", ev, split
+    return ev, "CUDA events", ev, split
+
+
+def sync_summary(stats: dict) -> dict | None:
+    """The self-synchronising design's statistics over the lanes, from an
+    entropy wrapper's `stats_out` (None for the serial design): chase rounds
+    (the fused first included) and the longest chase in subsequences (the
+    worst lane), subsequences re-decoded after the first round and
+    subsequences (all lanes)."""
+    if "sync" not in stats:
+        return None
+    s = stats["sync"].cpu()
+    return dict(rounds=int(s[:, 0].max()), longest_chase=int(s[:, 1].max()),
+                redecoded=int(s[:, 2].sum()), subsequences=int(s[:, 3].sum()))
+
+
 def phase_hf_kernels(plans: dict, dev) -> list[dict]:
     """B4 (prefix on config 4's first launch, rANS on hf_ans_2048) and B5
     (hf_ctx_2048) on the main path's full-size lanes: kernel and plain
@@ -669,64 +759,76 @@ def phase_hf_kernels(plans: dict, dev) -> list[dict]:
     symbols, must give the same planes and snapshots; the uncapped kernel
     must give the host plan's coefficient planes exactly, end every lane
     (the final ANS state 0x130000 where rANS) and flag no error."""
+    return [hf_row(name, cfg, plans[cfg], replaces, dev) for name, cfg, replaces in (
+        ("hf_prefix", "config4", "j40_tpu/ops/pallas_hf.py:71"),
+        ("hf_ans", "hf_ans_2048", "j40_tpu/ops/pallas_hf.py:71"),
+        ("hf_ctx", "hf_ctx_2048", "j40_tpu/ops/pallas_hf.py:725"))]
+
+
+def hf_row(name: str, cfg: str, p: dict, replaces: str, dev) -> dict:
+    """One HF kernel row (phase_hf_kernels) on the first batch of the plan
+    `p` of stream `cfg`."""
     from j40_tpu_torch.ops import device_vardct as DV
     from j40_tpu_torch.ops import hf_kernels as HK
 
-    rows = []
-    for name, cfg, replaces in (("hf_prefix", "config4", "j40_tpu/ops/pallas_hf.py:71"),
-                                ("hf_ans", "hf_ans_2048", "j40_tpu/ops/pallas_hf.py:71"),
-                                ("hf_ctx", "hf_ctx_2048", "j40_tpu/ops/pallas_hf.py:725")):
-        p = plans[cfg]
-        batch = DV.hf_batches(p["lanes"])[0]
-        ncmax = max(ln.gw8 * ln.gh8 for ln in batch)
-        d, launch, done_row = DV.pack_hf_batch(p["vd"], p["spec"], batch, p["orders"],
-                                               p["ctx"], dev)
-        assert name == f"hf_{hf_mode(p)}", (name, hf_mode(p))
-        plain = HK.hf_ctx_walk_ref if p["ctx"] else HK.hf_walk_ref
-        out_k, st_k = launch(ncmax, cap_steps=HF_CAP)
-        out_p, st_p = launch(ncmax, cap_steps=HF_CAP, walk=plain)
-        torch.cuda.synchronize()
-        assert torch.equal(st_k, st_p), f"{name}: snapshot differs from the plain version"
-        assert torch.equal(out_k, out_p), f"{name}: planes differ from the plain version"
+    batch = DV.hf_batches(p["lanes"])[0]
+    ncmax = max(ln.gw8 * ln.gh8 for ln in batch)
+    d, launch, done_row = DV.pack_hf_batch(p["vd"], p["spec"], batch, p["orders"],
+                                           p["ctx"], dev)
+    assert name == f"hf_{hf_mode(p)}", (name, hf_mode(p))
+    plain = HK.hf_ctx_walk_ref if p["ctx"] else HK.hf_walk_ref
+    out_k, st_k = launch(ncmax, cap_steps=HF_CAP)
+    out_p, st_p = launch(ncmax, cap_steps=HF_CAP, walk=plain)
+    torch.cuda.synchronize()
+    assert torch.equal(st_k, st_p), f"{name}: snapshot differs from the plain version"
+    assert torch.equal(out_k, out_p), f"{name}: planes differ from the plain version"
 
-        out, st = launch(ncmax)
-        s = HK.lane_state(st, len(batch), done_row)
-        host = torch.from_numpy(host_coeffs(p["vd"], batch, ncmax)).to(dev)
-        err = (out - host).abs().max().item()
-        assert err == 0, f"{name}: planes differ from the host plan by {err}"
-        assert s["done"].all() and not s["err"].any(), s
-        assert p["spec"].use_prefix_code or (s["ans_state"] == 0x130000).all()
-        sym = lane_symbols(out, d["nat"], d["nc"])
-        nsym, longest = int(sym.sum()), int(sym.max())
+    stats: dict = {}
+    out, st = launch(ncmax, **({} if p["ctx"] else {"stats_out": stats}))
+    # B5 keeps its one-thread-per-lane design
+    design = "serial" if p["ctx"] else HK.design(d["use_prefix"])
+    sync = sync_summary(stats)
+    s = HK.lane_state(st, len(batch), done_row)
+    host = torch.from_numpy(host_coeffs(p["vd"], batch, ncmax)).to(dev)
+    err = (out - host).abs().max().item()
+    assert err == 0, f"{name}: planes differ from the host plan by {err}"
+    assert s["done"].all() and not s["err"].any(), s
+    assert p["spec"].use_prefix_code or (s["ans_state"] == 0x130000).all()
+    sym = lane_symbols(out, d["nat"], d["nc"])
+    nsym, longest = int(sym.sum()), int(sym.max())
 
-        scratch = torch.empty_like(out)
-        ms = event_ms(lambda: launch(ncmax, out=scratch), 10)
-        ms_cap = event_ms(lambda: launch(ncmax, cap_steps=HF_CAP, out=scratch), 20)
-        plain_ms = event_ms(lambda: launch(ncmax, cap_steps=HF_CAP, out=scratch,
-                                           walk=plain))
-        tables = sum(d[k].numel() * 4 for k in ("lut", "lane", "nat", "ab", "cmap",
-                                                "cfgw", "nf", "bctx3") if k in d)
-        b = bound(sum(len(ln.data) for ln in batch) + tables + out.numel() * 4,
-                  HF_OPS_PER_SYMBOL * nsym)
-        rows.append(dict(
-            name=name, route="cuda", source="j40_tpu_torch/csrc/hf.cu",
-            replaces=replaces, counter="hf_ctx" if p["ctx"] else "hf",
-            mode=hf_mode(p),
-            shape=f"{len(batch)} lanes of {cfg}, up to {max(len(ln.data) for ln in batch)} B "
-                  f"and {ncmax} cells -> {tuple(out.shape)} f32",
-            max_abs_err=err, ms=ms, ms_at_cap=ms_cap, timer="CUDA events",
-            plain_ms=plain_ms, plain_cap=HF_CAP,
-            bound_ms=b[0], bound_by=b[1], library_ms=None, library=None,
-            symbols=nsym, symbols_longest_lane=longest,
-            ns_per_symbol=ms * 1e6 / longest,
-        ))
-        print(f"kernel {name} [{rows[-1]['shape']}]: {ms:.3f} ms uncapped "
-              f"({nsym} symbols, longest lane {longest}, "
-              f"{rows[-1]['ns_per_symbol']:.1f} ns per symbol), {ms_cap:.4f} ms at "
-              f"{HF_CAP} steps, plain {plain_ms:.1f} ms at {HF_CAP} steps, bound "
-              f"{b[0]:.4f} ms ({b[1]}); equal to the plain version (capped) and "
-              f"to the host plan (uncapped)")
-    return rows
+    scratch = torch.empty_like(out)
+    ms, timer, ms_events, split = entropy_ms(lambda: launch(ncmax, out=scratch), design)
+    ms_cap = event_ms(lambda: launch(ncmax, cap_steps=HF_CAP, out=scratch), 20)
+    plain_ms = event_ms(lambda: launch(ncmax, cap_steps=HF_CAP, out=scratch,
+                                       walk=plain))
+    tables = sum(d[k].numel() * 4 for k in ("lut", "lane", "nat", "ab", "cmap",
+                                            "cfgw", "nf", "bctx3") if k in d)
+    b = bound(sum(len(ln.data) for ln in batch) + tables + out.numel() * 4,
+              HF_OPS_PER_SYMBOL * nsym)
+    row = dict(
+        name=name, route="cuda", source="j40_tpu_torch/csrc/hf.cu",
+        replaces=replaces, counter="hf_ctx" if p["ctx"] else "hf",
+        mode=hf_mode(p),
+        shape=f"{len(batch)} lanes of {cfg}, up to {max(len(ln.data) for ln in batch)} B "
+              f"and {ncmax} cells -> {tuple(out.shape)} f32",
+        max_abs_err=err, ms=ms, ms_at_cap=ms_cap, timer=timer, ms_events=ms_events,
+        plain_ms=plain_ms, plain_cap=HF_CAP,
+        bound_ms=b[0], bound_by=b[1], library_ms=None, library=None,
+        symbols=nsym, symbols_longest_lane=longest,
+        ns_per_symbol=ms * 1e6 / longest, symbols_per_s=nsym / (ms * 1e-3),
+        design=design, sync=sync, kernels_ms=split,
+    )
+    print(f"kernel {name} [{row['shape']}]: {design} design, {ms:.3f} ms uncapped "
+          f"({timer}; events {ms_events:.3f} ms; {nsym} symbols, "
+          f"{row['symbols_per_s']:.4g} a second, longest lane "
+          f"{longest}, {row['ns_per_symbol']:.1f} ns per symbol), sync {sync}, by kernel "
+          f"{ {k: round(v, 4) for k, v in split.items()} }, "
+          f"{ms_cap:.4f} ms at "
+          f"{HF_CAP} steps, plain {plain_ms:.1f} ms at {HF_CAP} steps, bound "
+          f"{b[0]:.4f} ms ({b[1]}); equal to the plain version (capped) and "
+          f"to the host plan (uncapped)")
+    return row
 
 
 def modular_plan(data: bytes) -> dict:
@@ -751,9 +853,11 @@ def modular_plan(data: bytes) -> dict:
 
 # the token kernel's rows: (row name, stream) for each table mode — per-lane
 # rows (local trees, prefix), one shared row (B6's own case; prefix and
-# rANS), per-token clusters (static tree, rANS)
+# rANS), per-token clusters (static tree, rANS), and the e3 tree's prefix
+# lanes (local neighbour-property trees, per-lane rows)
 TOKEN_ROWS = (("tokens_lane", "modular"), ("tokens_shared", "modular_global"),
-              ("tokens_shared_ans", "modular_e3gt"), ("tokens_ctx", "modular_static_ctx"))
+              ("tokens_shared_ans", "modular_e3gt"), ("tokens_ctx", "modular_static_ctx"),
+              ("tokens_e3", "modular_e3"))
 # symbols per lane of the capped token kernel-vs-plain comparison
 TOKEN_CAP = 2000
 # least 32-bit integer operations per token: the table index (2), the rANS
@@ -769,56 +873,100 @@ def phase_token_kernels(plans: dict, dev) -> list[dict]:
     positions (and the CPU's plain version too); uncapped, every lane must
     end where its section ends, with the final rANS state 0x130000 where
     rANS (device_modular._check_lane_end)."""
+    rows = []
+    for name, cfg in TOKEN_ROWS:
+        (batch,) = plans[cfg]["batches"]
+        rows.append(token_row(name, cfg, batch, dev))
+    return rows
+
+
+def token_row(name: str, cfg: str, batch: list, dev) -> dict:
+    """One token kernel row (phase_token_kernels) on a batch of lanes of the
+    stream `cfg`."""
     from j40_tpu_torch.ops import device_modular as DM
     from j40_tpu_torch.ops import token_kernels as TKN
     from j40_tpu_torch.ops.hf_kernels import to_device
 
-    rows = []
-    for name, cfg in TOKEN_ROWS:
-        (batch,) = plans[cfg]["batches"]
-        packed = DM.pack_lanes(batch)
-        d = to_device(packed, dev)
-        mode = ("ctx" if packed["cids"] is not None
-                else "shared" if packed["sym"].shape[0] == 1 else "lane")
-        got = TKN.launch_tokens(d, TOKEN_CAP)
-        plain = TKN.launch_tokens(d, TOKEN_CAP, decode=TKN.decode_tokens_ref)
-        torch.cuda.synchronize()
-        for a, b in zip(got, plain):
-            assert torch.equal(a, b), f"{name}: the kernel differs from the plain version"
-        vals, st, bp = TKN.launch_tokens(d)
-        st_h, bp_h = st.cpu().numpy(), bp.cpu().numpy()
-        for li, ln in enumerate(batch):
-            DM._check_lane_end(ln, ((ln.bitoff // 8) & ~1) * 8 + int(bp_h[li]),
-                               packed["use_prefix"], int(st_h[li]) & 0xFFFFFFFF)
-        nsym = sum(ln.nsym for ln in batch)
-        longest = max(ln.nsym for ln in batch)
-        ms = event_ms(lambda: TKN.launch_tokens(d), 10)
-        ms_cap = event_ms(lambda: TKN.launch_tokens(d, TOKEN_CAP), 20)
-        plain_ms = event_ms(lambda: TKN.launch_tokens(d, TOKEN_CAP,
-                                                      decode=TKN.decode_tokens_ref))
-        tables = sum(d[k].numel() * 4 for k in ("sym", "fb", "mb", "a", "lo", "lsb"))
-        b = bound(sum(len(ln.data) for ln in batch) + tables
-                  + (d["cids"].numel() * 4 if d["cids"] is not None else 0)
-                  + vals.numel() * 4 + st.numel() * 4 + bp.numel() * 4,
-                  TOKEN_OPS_PER_SYMBOL * nsym)
-        rows.append(dict(
-            name=name, route="cuda", source="j40_tpu_torch/csrc/tokens.cu",
-            replaces="j40_tpu/ops/pallas_entropy.py:312", counter="tokens",
-            paths=[f"{cfg}/device"], mode=mode,
-            shape=f"{len(batch)} lanes of {cfg} ({mode} tables, "
-                  f"{'prefix' if packed['use_prefix'] else 'rANS'}), up to "
-                  f"{max(len(ln.data) for ln in batch)} B -> {tuple(vals.shape)} int32",
-            max_abs_err=0, ms=ms, ms_at_cap=ms_cap, timer="CUDA events",
-            plain_ms=plain_ms, plain_cap=TOKEN_CAP, bound_ms=b[0], bound_by=b[1],
-            library_ms=None, library=None, symbols=nsym, symbols_longest_lane=longest,
-            ns_per_symbol=ms * 1e6 / longest,
-        ))
-        print(f"kernel {name} [{rows[-1]['shape']}]: {ms:.3f} ms uncapped ({nsym} "
-              f"symbols, longest lane {longest}, {rows[-1]['ns_per_symbol']:.1f} ns per "
-              f"symbol), {ms_cap:.4f} ms at {TOKEN_CAP} steps, plain {plain_ms:.1f} ms at "
-              f"{TOKEN_CAP} steps, bound {b[0]:.4f} ms ({b[1]}); equal to the plain "
-              f"version (capped), every lane at its section's end (uncapped)")
-    return rows
+    packed = DM.pack_lanes(batch)
+    d = to_device(packed, dev)
+    mode = ("ctx" if packed["cids"] is not None
+            else "shared" if packed["sym"].shape[0] == 1 else "lane")
+    got = TKN.launch_tokens(d, TOKEN_CAP)
+    plain = TKN.launch_tokens(d, TOKEN_CAP, decode=TKN.decode_tokens_ref)
+    torch.cuda.synchronize()
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b), f"{name}: the kernel differs from the plain version"
+    stats: dict = {}
+    vals, st, bp = TKN.launch_tokens(d, stats_out=stats)
+    design = TKN.design(packed["use_prefix"], packed["cids"] is not None)
+    sync = sync_summary(stats)
+    st_h, bp_h = st.cpu().numpy(), bp.cpu().numpy()
+    for li, ln in enumerate(batch):
+        DM._check_lane_end(ln, ((ln.bitoff // 8) & ~1) * 8 + int(bp_h[li]),
+                           packed["use_prefix"], int(st_h[li]) & 0xFFFFFFFF)
+    nsym = sum(ln.nsym for ln in batch)
+    longest = max(ln.nsym for ln in batch)
+    ms, timer, ms_events, split = entropy_ms(lambda: TKN.launch_tokens(d), design)
+    ms_cap = event_ms(lambda: TKN.launch_tokens(d, TOKEN_CAP), 20)
+    plain_ms = event_ms(lambda: TKN.launch_tokens(d, TOKEN_CAP,
+                                                  decode=TKN.decode_tokens_ref))
+    tables = sum(d[k].numel() * 4 for k in ("sym", "fb", "mb", "a", "lo", "lsb"))
+    b = bound(sum(len(ln.data) for ln in batch) + tables
+              + (d["cids"].numel() * 4 if d["cids"] is not None else 0)
+              + vals.numel() * 4 + st.numel() * 4 + bp.numel() * 4,
+              TOKEN_OPS_PER_SYMBOL * nsym)
+    row = dict(
+        name=name, route="cuda", source="j40_tpu_torch/csrc/tokens.cu",
+        replaces="j40_tpu/ops/pallas_entropy.py:312", counter="tokens",
+        paths=[f"{cfg}/device"], mode=mode,
+        shape=f"{len(batch)} lanes of {cfg} ({mode} tables, "
+              f"{'prefix' if packed['use_prefix'] else 'rANS'}), up to "
+              f"{max(len(ln.data) for ln in batch)} B -> {tuple(vals.shape)} int32",
+        max_abs_err=0, ms=ms, ms_at_cap=ms_cap, timer=timer, ms_events=ms_events,
+        plain_ms=plain_ms, plain_cap=TOKEN_CAP, bound_ms=b[0], bound_by=b[1],
+        library_ms=None, library=None, symbols=nsym, symbols_longest_lane=longest,
+        ns_per_symbol=ms * 1e6 / longest, symbols_per_s=nsym / (ms * 1e-3),
+        design=design, sync=sync, kernels_ms=split,
+    )
+    print(f"kernel {name} [{row['shape']}]: {design} design, {ms:.3f} ms uncapped "
+          f"({timer}; events {ms_events:.3f} ms; {nsym} symbols, "
+          f"{row['symbols_per_s']:.4g} a second, longest lane "
+          f"{longest}, {row['ns_per_symbol']:.1f} ns per symbol), sync {sync}, by kernel "
+          f"{ {k: round(v, 4) for k, v in split.items()} }, "
+          f"{ms_cap:.4f} ms at {TOKEN_CAP} steps, plain {plain_ms:.1f} ms at "
+          f"{TOKEN_CAP} steps, bound {b[0]:.4f} ms ({b[1]}); equal to the plain "
+          f"version (capped), every lane at its section's end (uncapped)")
+    return row
+
+
+def phase_flat_probes(streams: dict, dev) -> list[dict]:
+    """The sync design on flat, screenshot-like content (FLAT_STREAMS), whose
+    long runs of the all-zero codeword may fall into step only at the run's
+    end: B6 on the modular stream's largest batch of lanes, also through
+    the serial design (the same lanes with per-token cluster ids, all 0:
+    equal values, timed between events), and B4 on the VarDCT stream's
+    prefix lanes; each checked as its kernel row is.  Not on the kernels
+    line: these are the same kernels on other content."""
+    from j40_tpu_torch.ops import device_modular as DM
+    from j40_tpu_torch.ops import token_kernels as TKN
+    from j40_tpu_torch.ops.hf_kernels import to_device
+
+    hf = hf_row("hf_prefix", "vardct_flat", hf_plan(streams["vardct_flat"]),
+                "j40_tpu/ops/pallas_hf.py:71", dev)
+    batch = max(modular_plan(streams["modular_flat"])["batches"], key=len)
+    tok = token_row("tokens_lane", "modular_flat", batch, dev)
+    d = to_device(DM.pack_lanes(batch), dev)
+    assert tok["design"] == "sync" and TKN.design(True, True) == "serial"
+    serial = dict(d, cids=torch.zeros((d["words"].shape[0], d["n_steps"]),
+                                      dtype=torch.int32, device=dev))
+    for a, b in zip(TKN.launch_tokens(serial), TKN.launch_tokens(d)):
+        assert torch.equal(a, b), "flat lanes: the serial design differs from the sync one"
+    tok["serial_ms_events"] = event_ms(lambda: TKN.launch_tokens(serial), 10)
+    print(f"flat probe: B6 sync {tok['ms_events']:.3f} ms (events) against the serial "
+          f"design's {tok['serial_ms_events']:.3f} ms on the same lanes")
+    for r, name in ((hf, "hf_prefix_flat"), (tok, "tokens_flat")):
+        r["name"] = name
+    return [hf, tok]
 
 
 def phase_modular_path(name: str, data: bytes, plan: dict) -> dict:
@@ -1045,6 +1193,7 @@ def main() -> int:
     lap("encode and plans")
     kernels = (phase_kernels(inp3[0], big4, dev) + phase_filter_kernels(big12, dev)
                + phase_hf_kernels(plans, dev) + phase_token_kernels(mplans, dev))
+    flat = phase_flat_probes(streams, dev)
     lap("kernels")
 
     filtered = {"reconstruct_dct8", "gaborish", "epf_fused", "xyb_to_srgb"}
@@ -1089,13 +1238,15 @@ def main() -> int:
     out_dir = Path(__file__).resolve().parent / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
-        card=card, build=build, kernels=kernels, main_path=mains,
+        card=card, build=build, kernels=kernels, flat_probes=flat, main_path=mains,
         epf_skipped_blocks=skipped, profiles=profiles,
         seconds=time.perf_counter() - t_start), indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # the entropy rows add their rate: ns per symbol of the longest lane
-    print(json.dumps({"kernels": [{k: r[k] for k in keys + ("ns_per_symbol",) if k in r}
+    # the entropy rows add their design, its sync statistics, their rates,
+    # the timer of `ms` and the time between CUDA events around the call
+    extra = ("ns_per_symbol", "symbols_per_s", "design", "sync", "timer", "ms_events")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in kernels]}))
     print(card["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

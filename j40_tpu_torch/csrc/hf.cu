@@ -9,9 +9,11 @@
 //                         full HF context model)
 //
 // Built with nvcc into the library of ops/_build.py (plain C interface,
-// ctypes); the wrappers, plain versions and packers are in ops/hf_kernels.py.
-// Every entry point launches on the caller's stream, allocates nothing and
-// returns cudaGetLastError().
+// ctypes); the wrappers, plain versions and packers are in ops/hf_kernels.py,
+// which allocates B4's scratch (j40tt_hf_walk_scratch ints) and passes each
+// lane's section length in bits (nbits; null: the prefix design's region
+// ends at the lane's last nonzero word).  Every entry point launches on the
+// caller's stream, allocates nothing and returns cudaGetLastError().
 //
 // What each computes: per lane, one pass-group section (an isolated entropy
 // stream, j40.h:7749-7776) whose cells are all DCT8 varblocks.  Per cell, per
@@ -25,20 +27,36 @@
 // lane is done.
 //
 // Bound: the bytes are the section streams, read once, and the dense planes,
-// written once; at 3.35 TB/s they take microseconds.  The real limit is the
-// serial chain of symbols of the longest lane: each symbol's table index and
-// bit position depend on the one before (the rANS state, the bit reader, and
-// for B5 the context), some tens of dependent instructions and two or three
-// shared-memory loads per symbol.  This design accepts that: one section per
-// thread block, whose threads first stage the lane's tables in shared memory,
-// then one thread walks the section through a 64-bit bit buffer over the
-// lane's 16-bit words (global memory, L1-cached as it streams).  A symbol
-// reads at most 33 bits (16 renormalization bits or a prefix code of <= 13,
-// then <= 17 hybrid-int bits), so the buffer is refilled to at least 49 bits
-// before each symbol.  A later PR could split a lane at cell rows (the
-// context model only needs the nonzero ring of the row above, which a first
-// pass over the nz symbols could provide) or interleave several lanes per
-// warp to hide the chain's latency.
+// written once; at 3.35 TB/s they take microseconds.  What stands in the way
+// is the serial chain of symbols of a lane: each symbol's table index and
+// bit position depend on the one before (the rANS state, the bit reader,
+// and for B5 the context).  The designs:
+//
+//   B4, prefix   a prefix lane's symbols are context-free and its codewords
+//                form a prefix code over bit strings, so the section splits:
+//                the self-synchronising decode of prefix_sync.cuh (one
+//                thread per 256-bit subsequence) writes every hybrid-int
+//                value of the lane to scratch, then a structure pass walks
+//                them, one warp per lane: per block (one nonzero count, then
+//                coefficients until that many nonzeros or order index 63)
+//                one ballot over up to 64 values from a ring of values in
+//                shared memory finds the block's end, and the warp scatters
+//                the nonzeros at their natural positions.  Symbols decoded past
+//                the lane's end are never read; a section read past its end
+//                (past the skimmed bits) ends on a serial tail.
+//   B4, rANS     one 32-bit state runs through the section, so it cannot be
+//                split: one thread per lane decodes, its chain shortened to
+//                one shared-memory load per symbol (a fused entry per state
+//                slot: freq, base, the token's extra bits and value base,
+//                built from the alias records and the hybrid-int config) and
+//                a refill without a loop from registers loaded ahead; a
+//                second warp walks the values it leaves in a shared-memory
+//                ring, as the prefix design's structure pass does (with the
+//                walk inline in the decoding thread the chain ran 1.39x
+//                slower on an H100: tools/torch_hf_ans_ab.py).
+//   B5           one section per thread block, one thread walking it through
+//                the 64-bit buffer of entropy.cuh Bits with two or three
+//                shared-memory loads per symbol.
 //
 // None of the Pallas kernels' TPU machinery carries over: the words -> L2 ->
 // G -> 48-bit funnel window hierarchy, the column-layout tables and select
@@ -46,12 +64,13 @@
 // inverse-order gather (folded into the walk: a lane writes only its own
 // positions, so no atomics), the VMEM gates and the windowed long-stream
 // mode, and the bytes-based step budget (the decode path passes the format's
-// hard bound, 192 symbols per cell, and every lane ends in one launch).
+// hard bound, 192 symbols per cell, and every lane ends in one call).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "entropy.cuh"
+#include "prefix_sync.cuh"
 
 namespace {
 
@@ -60,8 +79,6 @@ constexpr int kNat = 3 * 64;   // natural position per (XYB slot, order index)
 constexpr int kAnsTab = 512;   // 2 records x 256 buckets at most
 constexpr int kRing = 3 * 32;  // nonzero counts of the row above, per channel
 constexpr int kRingRow = 16;   // first ring row of the B5 snapshot
-
-enum Mode { kPrefix = 0, kAns = 1 };
 
 struct Hybrid {
   int lsb, split, bits, base_mid, msb;
@@ -112,6 +129,11 @@ __device__ __forceinline__ int xyb_slot(int cyxb) {
   return cyxb == 0 ? 1 : (cyxb == 1 ? 0 : 2);
 }
 
+// The signed coefficient of a token value (j40.h:610-615).
+__device__ __forceinline__ int signed_value(int v) {
+  return (v & 1) ? -(v >> 1) - 1 : (v >> 1);
+}
+
 // Returns true when the walk moved to the next cell.
 __device__ __forceinline__ bool walk_step(Walk& w, int value, const int* nat,
                                           float* out, int ncmax) {
@@ -125,7 +147,7 @@ __device__ __forceinline__ bool walk_step(Walk& w, int value, const int* nat,
     adv = value == 0;
   } else {  // a coefficient at order index ii
     const int c = xyb_slot(w.cyxb);
-    const int sval = (value & 1) ? -(value >> 1) - 1 : (value >> 1);
+    const int sval = signed_value(value);
     if (sval != 0)
       out[((size_t)c * ncmax + w.k) * 64 + nat[c * 64 + (w.ii & 63)]] =
           (float)sval;
@@ -166,54 +188,316 @@ __device__ __forceinline__ void store_walk(int* st, int L, int l,
   st[6 * L + l] = w.err;
 }
 
-// B4.  lane (L, 8): table base, table length, log_bucket_size, lsb, split,
-// msb + lsb, split_exp - msb - lsb, msb.  Shared memory: nat (192) then the
-// lane's table (prefix LUT of 2^width entries, or its 2*T alias records).
-template <int kMode>
-__global__ void __launch_bounds__(kThreads)
-    hf_walk_kernel(const uint16_t* __restrict__ words, int W,
-                   const int* __restrict__ init, int* __restrict__ st,
-                   const int* __restrict__ ncells, const int* __restrict__ lut,
-                   int lut_len, int tab_cap, const int* __restrict__ lane,
-                   const int* __restrict__ nat, float* __restrict__ out, int L,
-                   int ncmax, int cap, int width) {
-  extern __shared__ int smem[];
-  int* nat_s = smem;
-  int* tab = smem + kNat;
+// ---------------------------------------------------------------- B4
+// lane (L, 8): table base, table length, log_bucket_size, lsb, split,
+// msb + lsb, split_exp - msb - lsb, msb.
+
+constexpr int kWalkWarps = 4;  // structure pass: one warp per lane
+
+__device__ __forceinline__ Hybrid lane_hybrid(const int* cfg) {
+  return Hybrid{cfg[3], cfg[4], cfg[5], cfg[6], cfg[7]};
+}
+
+// The fused entry of a token under hybrid config h (the arithmetic of
+// hybrid()): aux in x below the extra-bit count.
+__device__ __forceinline__ uint2 fuse_hybrid(uint32_t aux, int tok, const Hybrid& h) {
+  if (tok < h.split) return make_uint2(aux, (uint32_t)tok);
+  const int mb = h.base_mid + (int)((uint32_t)(tok - h.split) >> h.bits);
+  const uint32_t lo = (uint32_t)tok & ((1u << h.lsb) - 1);
+  const uint32_t hi = ((uint32_t)tok >> h.lsb) & ((1u << h.msb) - 1);
+  const uint32_t a = ((1u << h.msb) | hi) << h.lsb;
+  return make_uint2(aux | ((uint32_t)mb << kMbShift), (a << mb) | lo);
+}
+
+// Entry i of the lane's table (0 past its length, at most cap entries).
+__device__ __forceinline__ int lane_lut(const int* lut, int lut_len, const int* cfg,
+                                        int cap, int i) {
+  return i < min(cfg[1], cap) && cfg[0] + i < lut_len ? lut[cfg[0] + i] : 0;
+}
+
+__device__ __forceinline__ void next_channel(Walk& w) {
+  if (++w.cyxb == 3) {
+    w.cyxb = 0;
+    ++w.k;
+  }
+}
+
+// Setup of the prefix design: blocks [0, L) set up lane l (its region
+// starts at the snapshot's bit position; a lane that is done decodes
+// nothing); the rest build each lane's fused table and length bytes from
+// its LUT of S = 2^width entries.
+__global__ void __launch_bounds__(kSetupThreads)
+    hf_sync_setup(const uint16_t* __restrict__ words, int W,
+                  const int* __restrict__ init, const int* __restrict__ ncells,
+                  const int* __restrict__ lut, int lut_len,
+                  const int* __restrict__ lane, const int* __restrict__ nbits, int L,
+                  int cap, SyncScratch sc) {
+  const int S = sc.S;
+  if ((int)blockIdx.x < L) {
+    const int l = blockIdx.x;
+    const int* cfg = lane + 8 * l;
+    const int k = init[2 * L + l], nc = ncells[l];
+    const int n = k < nc && init[6 * L + l] == 0
+                      ? (int)min((long long)cap, 192LL * (nc - k)) : 0;
+    const int e0 = lane_lut(lut, lut_len, cfg, S, 0);
+    const uint2 f0 = fuse_hybrid(0, e0 & 0xFFFF, lane_hybrid(cfg));
+    lane_setup(words + (size_t)l * W, W, l, nbits ? nbits[l] : -1, init[L + l], n,
+               (e0 >> 16) == 0, fused_mb(f0), l, cfg[3], sc);
+    return;
+  }
+  const size_t i = (size_t)(blockIdx.x - L) * blockDim.x + threadIdx.x;
+  if (i >= (size_t)L * S) return;
+  const int* cfg = lane + 8 * (i / S);
+  const int e = lane_lut(lut, lut_len, cfg, S, (int)(i % S));
+  const uint2 f = fuse_hybrid((uint32_t)e >> 16, e & 0xFFFF, lane_hybrid(cfg));
+  sc.fz[i] = f;
+  sc.tl[i] = (uint8_t)(((uint32_t)e >> 16) + fused_mb(f));
+}
+
+// Index of the n-th (1-based) set bit of m, which has at least n.
+__device__ __forceinline__ int nth_bit(uint64_t m, int n) {
+  int pos = 0;
+  for (int w = 32; w >= 1; w >>= 1) {
+    const int c = __popcll(m & ((1ull << w) - 1));
+    if (c < n) {
+      n -= c;
+      m >>= w;
+      pos += w;
+    }
+  }
+  return pos;
+}
+
+// One block of the walk by one warp (every lane holds the same walk state):
+// the nonzero count (walk_step's first branch), or the coefficients at
+// order indices ii..63, which end at the block's nzrem-th nonzero or
+// overrun at 63; found by one ballot over up to 64 values, whose nonzeros
+// the lanes scatter.  get(d) is the value d places after the block's first
+// (every lane calls it with the same control flow); at most `limit` values
+// may be consumed.  Returns the symbols consumed.
+template <typename Get>
+__device__ __forceinline__ int walk_block(Walk& w, Get get, int limit,
+                                          const int* nt, float* o, int ncmax) {
+  const int t = threadIdx.x & 31;
+  if (w.nzrem == 0) {
+    const int value = get(0);
+    if (value > 63) w.err = 1;
+    if (value > 0) {
+      w.nzrem = value;
+      w.ii = 1;
+    } else {
+      next_channel(w);
+    }
+    return 1;
+  }
+  const int ii0 = w.ii;
+  const int avail = min(64 - ii0, limit);
+  const int x0 = get(t), x1 = get(32 + t);
+  const uint32_t b0 = __ballot_sync(0xFFFFFFFFu, t < avail && x0 != 0);
+  const uint32_t b1 = __ballot_sync(0xFFFFFFFFu, t + 32 < avail && x1 != 0);
+  const uint64_t m = b0 | ((uint64_t)b1 << 32);
+  const int found = __popcll(m);
+  const bool finished = found >= w.nzrem;
+  const int run = finished ? nth_bit(m, w.nzrem) + 1 : avail;
+  const int c = xyb_slot(w.cyxb);
+  float* oc = o + ((size_t)c * ncmax + w.k) * 64;
+  const int* ntc = nt + c * 64;
+  if (t < run && x0 != 0) oc[ntc[(ii0 + t) & 63]] = (float)signed_value(x0);
+  if (t + 32 < run && x1 != 0) oc[ntc[(ii0 + t + 32) & 63]] = (float)signed_value(x1);
+  w.ii = ii0 + run;
+  if (finished) {
+    w.nzrem = 0;
+    next_channel(w);
+  } else {
+    w.nzrem -= found;
+    if (w.ii >= 64) {  // overrun
+      w.nzrem = 0;
+      w.err = 1;
+      next_channel(w);
+    }
+  }
+  return run;
+}
+
+// The structure pass of the prefix design: one warp per lane walks the
+// lane's values (vals, tail[2l] of them) from the snapshot, at most `cap`
+// symbols, and writes the new snapshot.  Every lane of the warp holds the
+// same walk state.
+constexpr int kWin = 256;  // the structure pass's ring of values, per warp
+
+__global__ void __launch_bounds__(32 * kWalkWarps)
+    hf_structure_kernel(const uint16_t* __restrict__ words, int W,
+                        const int* __restrict__ init, int* __restrict__ st,
+                        const int* __restrict__ ncells, const int* __restrict__ nat,
+                        float* __restrict__ out, int L, int ncmax, int cap,
+                        const int* __restrict__ vals, int V,
+                        const int* __restrict__ tail, SyncScratch sc) {
+  extern __shared__ int walk_s[];
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
+  const int l = blockIdx.x * kWalkWarps + warp;
+  if (l >= L) return;
+  int* ring = walk_s + warp * (kWin + kNat);
+  int* nt = ring + kWin;
+  for (int i = t; i < kNat; i += 32) nt[i] = nat[kNat * l + i];
+  uint32_t state;
+  int bitpos0;
+  Walk w;
+  load_walk(init, L, l, state, bitpos0, w);
+  const int nc = ncells[l];
+  const int T = tail[2 * l];
+  const int* v = vals + (size_t)l * V;
+  float* o = out + (size_t)l * 3 * ncmax * 64;
+  // the ring holds values [wb, wb + kWin); the next half, [wb + kWin, wb +
+  // 3 kWin / 2), waits in registers, loaded one shift ahead of its store
+  int p = 0, wb = 0;  // symbols walked; the ring's first value
+#define J40TT_VAL(i) ((i) < T ? v[(i)] : 0)
+  for (int i = t; i < kWin; i += 32) ring[i] = J40TT_VAL(i);
+  int q0 = J40TT_VAL(kWin + t), q1 = J40TT_VAL(kWin + 32 + t),
+      q2 = J40TT_VAL(kWin + 64 + t), q3 = J40TT_VAL(kWin + 96 + t);
+  __syncwarp();
+  while (w.k < nc && w.err == 0 && p < cap && p < T) {
+    if (p - wb > kWin - 64) {  // a block needs at most 64 values from p
+      const int at = wb + kWin;  // over the ring's oldest half
+      ring[(at + t) & (kWin - 1)] = q0;
+      ring[(at + 32 + t) & (kWin - 1)] = q1;
+      ring[(at + 64 + t) & (kWin - 1)] = q2;
+      ring[(at + 96 + t) & (kWin - 1)] = q3;
+      wb += kWin / 2;
+      q0 = J40TT_VAL(wb + kWin + t);
+      q1 = J40TT_VAL(wb + kWin + 32 + t);
+      q2 = J40TT_VAL(wb + kWin + 64 + t);
+      q3 = J40TT_VAL(wb + kWin + 96 + t);
+      __syncwarp();
+    }
+    p += walk_block(w, [&](int d) { return ring[(p + d) & (kWin - 1)]; },
+                    min(T - p, cap - p), nt, o, ncmax);
+  }
+#undef J40TT_VAL
+  if (t != 0) return;
+  int bitpos;
+  if (w.k < nc && w.err == 0 && p < cap) {
+    // past the skimmed bits: the serial tail, from where the values end
+    const int* li = sc.li + (size_t)l * kLaneInfo;
+    const uint2* fz = sc.fz + (size_t)l * sc.S;
+    const int lsb = li[kLsb];
+    Bits b{words + (size_t)l * W, W, 0, 0, 0};
+    b.seek(tail[2 * l + 1]);
+    for (; p < cap && w.k < nc && w.err == 0; ++p) {
+      b.refill();
+      walk_step(w, prefix_symbol(b, fz, (uint32_t)sc.S - 1, lsb), nt, o, ncmax);
+    }
+    bitpos = b.bitpos();
+  } else {
+    bitpos = p == 0 ? bitpos0 : sync_pos_after(words + (size_t)l * W, W, sc, l, p - 1);
+  }
+  store_walk(st, L, l, state, bitpos, w);
+  st[7 * L + l] = (w.k >= nc || w.err != 0) ? 1 : 0;
+}
+
+// The rANS design: one block of two warps per lane.  All threads build the
+// lane's fused table (4096 state slots) and stage nat in shared memory;
+// then thread 0 decodes the chain into a ring of values (with the state and
+// bit position after each), and warp 1 walks them as the prefix design's
+// structure pass does, so that the chain carries no structure work.  The
+// decoder stops where the walk ends (warp 1 raises `stop`) or at the most
+// symbols the walk could take; the snapshot's state and bit position are
+// the ring's after the last symbol walked.  The two warps meet through
+// three volatile shared counters: values decoded, the walk's position (a
+// ring entry is rewritten only once the walk has passed it, the last one
+// walked included) and stop.
+constexpr int kAnsThreads = 64;
+constexpr int kAnsRing = 1024;  // ring entries (a power of 2)
+constexpr int kAnsChunk = 32;   // values decoded between two counter updates
+
+__global__ void __launch_bounds__(kAnsThreads)
+    hf_ans_kernel(const uint16_t* __restrict__ words, int W,
+                  const int* __restrict__ init, int* __restrict__ st,
+                  const int* __restrict__ ncells, const int* __restrict__ lut,
+                  int lut_len, const int* __restrict__ lane,
+                  const int* __restrict__ nat, float* __restrict__ out, int L,
+                  int ncmax, int cap) {
+  extern __shared__ uint2 fused_s[];
+  int* nat_s = (int*)(fused_s + 4096);
+  int* ring_v = nat_s + kNat;
+  uint32_t* ring_s = (uint32_t*)(ring_v + kAnsRing);
+  int* ring_b = (int*)(ring_s + kAnsRing);
+  volatile int* ctl = ring_b + kAnsRing;  // values decoded, walk position, stop
   const int l = blockIdx.x;
   const int* cfg = lane + 8 * l;
-  const int tab_base = cfg[0];
-  const int tab_len = min(cfg[1], tab_cap);
-  for (int i = threadIdx.x; i < kNat; i += kThreads) nat_s[i] = nat[kNat * l + i];
-  for (int i = threadIdx.x; i < tab_len; i += kThreads)
-    tab[i] = tab_base + i < lut_len ? lut[tab_base + i] : 0;
+  const int lbs = cfg[2];
+  const Hybrid h = lane_hybrid(cfg);
+  for (int i = threadIdx.x; i < 4096; i += kAnsThreads) {
+    // the alias decode of ans_symbol for state slot i
+    const int bucket = i >> lbs, pos = i & ((1 << lbs) - 1);
+    const uint32_t e0 = (uint32_t)lane_lut(lut, lut_len, cfg, kAnsTab, 2 * bucket);
+    const uint32_t e1 = (uint32_t)lane_lut(lut, lut_len, cfg, kAnsTab, 2 * bucket + 1);
+    const bool direct = pos < (int)(e0 & 0x1FFF);
+    const int tok = direct ? bucket : (int)((e1 >> 24) & 0xFF);
+    const uint32_t base = direct ? (uint32_t)pos : (e1 & 0xFFF) + pos;
+    uint32_t freq = direct ? (e0 >> 13) & 0xFFF : (e1 >> 12) & 0xFFF;
+    if (freq == 0) freq = 4096;
+    fused_s[i] = fuse_hybrid(freq | (base << 13), tok, h);
+  }
+  for (int i = threadIdx.x; i < kNat; i += kAnsThreads) nat_s[i] = nat[kNat * l + i];
+  if (threadIdx.x < 3) ctl[threadIdx.x] = 0;
   __syncthreads();
-  if (threadIdx.x != 0) return;
 
   uint32_t state;
   int bitpos;
   Walk w;
   load_walk(init, L, l, state, bitpos, w);
   const int nc = ncells[l];
-  const int lbs = cfg[2];
-  const Hybrid h{cfg[3], cfg[4], cfg[5], cfg[6], cfg[7]};
-  const uint32_t wmask = (1u << width) - 1;
-  float* o = out + (size_t)l * 3 * ncmax * 64;
-  Bits b{words + (size_t)l * W, W, 0, 0, 0};
-  b.seek(bitpos);
-  for (int s = 0; s < cap && w.k < nc && w.err == 0; ++s) {
-    b.refill();
-    int tok;
-    if constexpr (kMode == kPrefix) {
-      const int e = tab[b.peek() & wmask];
-      tok = e & 0xFFFF;
-      b.drop(e >> 16);
-    } else {
-      tok = ans_symbol(state, b, lbs, tab);
+  // the most symbols the walk can take: 192 a cell
+  const int n = w.k < nc && w.err == 0 ? (int)min((long long)cap, 192LL * (nc - w.k)) : 0;
+  constexpr int mask = kAnsRing - 1;
+  if (threadIdx.x < 32) {
+    if (threadIdx.x != 0) return;
+    Reader rd{words + (size_t)l * W, W, 0, 0, 0, 0, 0};
+    rd.seek(bitpos);
+    for (int i0 = 0; i0 < n; i0 += kAnsChunk) {
+      while (!ctl[2] && i0 + kAnsChunk > ctl[1] + kAnsRing - 1) {
+      }
+      if (ctl[2]) break;
+      const int end = min(i0 + kAnsChunk, n);
+      for (int i = i0; i < end; ++i) {
+        rd.refill();
+        rd.refill();
+        const uint2 e = fused_s[state & 0xFFF];
+        uint32_t ns = (e.x & 0x1FFF) * (state >> 12) + ((e.x >> 13) & 0xFFF);
+        if (ns < (1u << 16)) {  // renormalization bits come first
+          ns = (ns << 16) | (rd.peek() & 0xFFFF);
+          rd.drop(16);
+        }
+        state = ns;
+        ring_v[i & mask] = fused_value(rd, e, h.lsb);
+        ring_s[i & mask] = state;
+        ring_b[i & mask] = rd.bitpos();
+      }
+      __threadfence_block();
+      ctl[0] = end;
     }
-    walk_step(w, hybrid(b, tok, h), nat_s, o, ncmax);
+    return;
   }
-  store_walk(st, L, l, state, b.bitpos(), w);
+  const volatile int* rv = ring_v;
+  float* o = out + (size_t)l * 3 * ncmax * 64;
+  int p = 0;
+  while (w.k < nc && w.err == 0 && p < cap) {
+    const int need = min(p + 64, n);
+    while (ctl[0] < need) {
+    }
+    __threadfence_block();
+    __syncwarp();
+    p += walk_block(w, [&](int d) { return rv[(p + d) & mask]; }, min(n - p, cap - p),
+                    nat_s, o, ncmax);
+    if (threadIdx.x == 32) ctl[1] = p;
+  }
+  if (threadIdx.x != 32) return;
+  ctl[2] = 1;
+  if (p > 0) {
+    state = ((const volatile uint32_t*)ring_s)[(p - 1) & mask];
+    bitpos = ((const volatile int*)ring_b)[(p - 1) & mask];
+  }
+  store_walk(st, L, l, state, bitpos, w);
   st[7 * L + l] = (w.k >= nc || w.err != 0) ? 1 : 0;
 }
 
@@ -311,26 +595,39 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
+// int32 words of scratch j40tt_hf_walk needs: the prefix design's phases
+// (L lanes of W words, a table of 2^width entries a lane), then the values
+// (L, V) and per lane their count and end; none for rANS.
+long long j40tt_hf_walk_scratch(int L, int W, int width, int use_prefix, int V) {
+  if (!use_prefix) return 0;
+  return sync_scratch_ints(L, W, L, 1 << width) + (long long)L * V + 2LL * L;
+}
+
 int j40tt_hf_walk(const uint16_t* words, int W, const int* init, int* st,
                   const int* ncells, const int* lut, int lut_len,
                   const int* lane, const int* nat, float* out, int L,
-                  int ncmax, int cap, int use_prefix, int width,
-                  cudaStream_t stream) {
-  const int tab_cap = use_prefix ? (1 << width) : kAnsTab;
-  const size_t smem = (size_t)(kNat + tab_cap) * sizeof(int);
+                  int ncmax, int cap, int use_prefix, int width, int* scratch,
+                  int V, const int* nbits, cudaStream_t stream) {
   if (use_prefix) {
-    const int rc = allow_smem(hf_walk_kernel<kPrefix>, smem);
+    const int S = 1 << width;
+    const SyncScratch sc = carve_scratch(scratch, L, W, L, S);
+    int* vals = scratch + sync_scratch_ints(L, W, L, S);
+    int* tail = vals + (size_t)L * V;
+    const int setup = L + (int)(((size_t)L * S + kSetupThreads - 1) / kSetupThreads);
+    hf_sync_setup<<<setup, kSetupThreads, 0, stream>>>(words, W, init, ncells, lut,
+                                                      lut_len, lane, nbits, L, cap, sc);
+    const int rc = launch_sync<false>(words, W, sc, vals, V, nullptr, tail, L, stream);
     if (rc) return rc;
-    hf_walk_kernel<kPrefix><<<L, kThreads, smem, stream>>>(
-        words, W, init, st, ncells, lut, lut_len, tab_cap, lane, nat, out, L,
-        ncmax, cap, width);
-  } else {
-    const int rc = allow_smem(hf_walk_kernel<kAns>, smem);
-    if (rc) return rc;
-    hf_walk_kernel<kAns><<<L, kThreads, smem, stream>>>(
-        words, W, init, st, ncells, lut, lut_len, tab_cap, lane, nat, out, L,
-        ncmax, cap, width);
+    hf_structure_kernel<<<(L + kWalkWarps - 1) / kWalkWarps, 32 * kWalkWarps,
+                          kWalkWarps * (kWin + kNat) * sizeof(int), stream>>>(words, W, init, st, ncells, nat, out, L, ncmax,
+                                    cap, vals, V, tail, sc);
+    return (int)cudaGetLastError();
   }
+  const size_t smem = 4096 * sizeof(uint2) + (kNat + 3 * kAnsRing + 3) * sizeof(int);
+  const int rc = allow_smem(hf_ans_kernel, smem);
+  if (rc) return rc;
+  hf_ans_kernel<<<L, kAnsThreads, smem, stream>>>(words, W, init, st, ncells, lut,
+                                               lut_len, lane, nat, out, L, ncmax, cap);
   return (int)cudaGetLastError();
 }
 

@@ -22,7 +22,7 @@ _PKG = Path(__file__).resolve().parents[1]
 SOURCES = [_PKG / "csrc" / n
            for n in ("reconstruct.cu", "filters.cu", "hf.cu", "tokens.cu")]
 #: headers the sources include (hashed with them)
-HEADERS = [_PKG / "csrc" / "entropy.cuh"]
+HEADERS = [_PKG / "csrc" / n for n in ("entropy.cuh", "prefix_sync.cuh")]
 BUILD_DIR = _PKG.parent / "build" / "j40_tpu_torch"
 # sm_90a: Hopper; no --use_fast_math (the kernels keep IEEE fp32 division)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -109,15 +109,21 @@ def load_kernels():
         lib.j40tt_gaborish.argtypes = [p, p, i, i, p, p]
         lib.j40tt_gaborish.restype = i
         # csrc/hf.cu
-        lib.j40tt_hf_walk.argtypes = [p, i, p, p, p, p, i, p, p, p, i, i, i, i, i, p]
+        lib.j40tt_hf_walk.argtypes = [p, i, p, p, p, p, i, p, p, p, i, i, i, i, i, p, i, p, p]
         lib.j40tt_hf_walk.restype = i
+        lib.j40tt_hf_walk_scratch.argtypes = [i] * 5
+        lib.j40tt_hf_walk_scratch.restype = ll
         lib.j40tt_hf_ctx_walk.argtypes = [
             p, i, p, p, p, p, i, p, i, p, p, p, i, p, p, i, i, i, i, i, p]
         lib.j40tt_hf_ctx_walk.restype = i
         # csrc/tokens.cu
         lib.j40tt_tokens.argtypes = [p, i, p, p, p, p, i, p, p, p, p, p, p,
-                                     i, i, i, i, i, p, i, p, i, p]
+                                     i, i, i, i, i, p, i, p, i, i, p, p, p]
         lib.j40tt_tokens.restype = i
+        lib.j40tt_tokens_scratch.argtypes = [i] * 7
+        lib.j40tt_tokens_scratch.restype = ll
+        lib.j40tt_sync_stats_at.argtypes = [i, i]
+        lib.j40tt_sync_stats_at.restype = ll
         lib.j40tt_error_string.argtypes = [i]
         lib.j40tt_error_string.restype = ctypes.c_char_p
         lib.j40tt_tile_blocks.argtypes = []

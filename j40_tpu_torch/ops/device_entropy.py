@@ -120,6 +120,13 @@ def pack_streams(streams: list[tuple[bytes, int]]) -> tuple[np.ndarray, np.ndarr
     return out, skips
 
 
+def stream_bits(streams: list[tuple[bytes, int]]) -> np.ndarray:
+    """(L,) int32: each lane's section length in bits from the even-byte base
+    `pack_streams` starts its words at (port: the sync design's region)."""
+    return np.array([8 * (len(data) - ((bitoff // 8) & ~1)) for data, bitoff in streams],
+                    np.int32)
+
+
 def pack_alias_buckets(cluster) -> tuple[np.ndarray, int]:
     """Bucket-level alias records: (2*table_size,) int32 + log_bucket_size.
 

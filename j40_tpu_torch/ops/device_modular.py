@@ -236,8 +236,8 @@ def pack_lanes(lanes) -> dict:
 
 
 def _decode_tokens(dec, lanes):
-    """Every lane's token values on the card, in one launch of the token
-    kernel: (values (L, n_steps) int32, final states, final bit positions),
+    """Every lane's token values on the card, in one call of the token
+    kernel's wrapper: (values (L, n_steps) int32, final states, final bit positions),
     device tensors."""
     return TKN.launch_tokens(to_device(pack_lanes(lanes), dec.device))
 

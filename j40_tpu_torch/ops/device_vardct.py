@@ -214,7 +214,7 @@ def pack_hf_batch(vd, spec, lanes, orders_yxb, ctx_mode: bool, device):
 
 def _decode_hf_batch(dec, vd, spec, lanes, orders_yxb, resident_ok,
                      full_cover, ctx_mode: bool) -> int:
-    """Decode one <=128-lane batch in one launch at the format's hard bound;
+    """Decode one <=128-lane batch in one kernel call at the format's hard bound;
     returns the number of LF groups kept device-resident.  port: one flow
     for both kernels — launch, dispatch the resident reconstructions, fetch
     the snapshot once, check (the Pallas path's optimistic peek and budget

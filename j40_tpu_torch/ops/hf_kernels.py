@@ -44,6 +44,7 @@ from .device_entropy import (
     pack_prefix_lut,
     pack_streams,
     spec_is_pallas_simple,
+    stream_bits,
 )
 
 YXB2XYB = (1, 0, 2)
@@ -144,8 +145,9 @@ def build_multi_inputs(lane_groups) -> dict:
     LUTs are padded to the widest code.  Returns numpy arrays: words (L, W)
     uint16, init (8, L), nc (L,), lut (the specs' tables stacked, each
     once), lane (L, 8) = [table base, table length, log_bucket_size, lsb,
-    split, msb + lsb, split_exp - msb - lsb, msb] per lane, nat (L, 3, 64);
-    and use_prefix, prefix_width, L, ncells_all, max_bytes."""
+    split, msb + lsb, split_exp - msb - lsb, msb] per lane, nat (L, 3, 64),
+    nbits (L,) (the section lengths in bits, `stream_bits`); and use_prefix,
+    prefix_width, L, ncells_all, max_bytes."""
     all_streams = [s for g in lane_groups for s in g[0]]
     L = len(all_streams)
     assert 0 < L <= MAX_LANES
@@ -181,7 +183,8 @@ def build_multi_inputs(lane_groups) -> dict:
             li += 1
     words, init = _words_and_init(all_streams, ST_ROWS, not use_prefix)
     return dict(words=words, init=init, nc=nc, lut=np.concatenate(tables),
-                lane=lane, nat=nat, use_prefix=use_prefix, prefix_width=width,
+                lane=lane, nat=nat, nbits=stream_bits(all_streams),
+                use_prefix=use_prefix, prefix_width=width,
                 L=L, ncells_all=[int(n) for n in nc],
                 max_bytes=max(len(d) for d, _ in all_streams))
 
@@ -466,28 +469,50 @@ def _check_walk(words, init, ncells, nat, out, rows: int):
     K._check("out", out, tuple(out.shape))
 
 
+def design(use_prefix: bool) -> str:
+    """The design a B4 launch takes: "sync" (prefix lanes: the
+    self-synchronising decode, then the structure pass) or "serial" (rANS
+    lanes: one thread per lane)."""
+    return "sync" if use_prefix else "serial"
+
+
 def hf_walk(words, init, ncells, lut, lane, nat, out, cap_steps: int,
-            use_prefix: bool, prefix_width: int):
+            use_prefix: bool, prefix_width: int, nbits=None, stats_out=None):
     """Walk up to `cap_steps` symbols of each lane's single-cluster DCT8
     section from the snapshot `init` (8, L), writing the coefficients into
     `out` (L, 3, ncells_max, 64) float32 in place; returns the new (8, L)
     snapshot.  words (L, W) int16 holding uint16 stream words, ncells (L,),
     lut, lane (L, 8) and nat (L, 3, 64) int32 as build_multi_inputs packs
-    them (port: one launch of the Pallas kernel's budget loop)."""
+    them (port: one launch of the Pallas kernel's budget loop).  Optional,
+    for the kernel: nbits (L,) int32, each lane's section length in bits
+    (the sync design decodes in parallel up to there; None: up to the
+    lane's last nonzero word), and stats_out, a dict that receives the sync
+    design's statistics (kernels._sync_stats)."""
     L = ncells.shape[0]
     _check_walk(words, init, ncells, nat, out, ST_ROWS)
     K._check("lut", lut, tuple(lut.shape), torch.int32)
     K._check("lane", lane, (L, 8), torch.int32)
     if nat.shape != (L, 3, 64) or (use_prefix and not 0 < prefix_width <= MAX_PREFIX_WIDTH):
         raise ValueError(f"nat {tuple(nat.shape)}, prefix width {prefix_width}")
-    if not K._on_cuda(words, init, ncells, lut, lane, nat, out):
+    if nbits is not None:
+        K._check("nbits", nbits, (L,), torch.int32)
+    if not K._on_cuda(words, init, ncells, lut, lane, nat, out,
+                      *([] if nbits is None else [nbits])):
         return hf_walk_ref(words, init, ncells, lut, lane, nat, out, cap_steps,
                            use_prefix, prefix_width)
     st = torch.empty_like(init)
-    K._launch("hf", "j40tt_hf_walk", words.device, words.data_ptr(), words.shape[1],
+    W = words.shape[1]
+    # the prefix design's values: at most min(cap, 192 a cell) per lane
+    V = min(int(cap_steps), 192 * out.shape[2]) if use_prefix else 0
+    scratch = K._entropy_scratch("j40tt_hf_walk_scratch", words.device, L, W,
+                                 prefix_width, int(use_prefix), V)
+    K._launch("hf", "j40tt_hf_walk", words.device, words.data_ptr(), W,
               init.data_ptr(), st.data_ptr(), ncells.data_ptr(), lut.data_ptr(),
               lut.numel(), lane.data_ptr(), nat.data_ptr(), out.data_ptr(), L,
-              out.shape[2], int(cap_steps), int(use_prefix), prefix_width)
+              out.shape[2], int(cap_steps), int(use_prefix), prefix_width,
+              scratch.data_ptr(), V, 0 if nbits is None else nbits.data_ptr())
+    if design(use_prefix) == "sync":
+        K._sync_stats(stats_out, scratch, L, W)
     return st
 
 
@@ -535,18 +560,22 @@ def _planes(d: dict, ncells_max: int, out):
 
 
 def launch_hf(d: dict, ncells_max: int, cap_steps: int | None = None, init=None,
-              out=None, walk=None):
+              out=None, walk=None, stats_out=None):
     """One B4 walk over the tensors of a packed input (`to_device`), at most
     `cap_steps` symbols per lane (default the format's hard bound, so every
     lane ends in this launch), from `init` (default the packed start) into
     `out` (default new zeroed planes).  Returns (out, snapshot) without
-    waiting for the device.  `walk` is `hf_walk` by default; a card run
-    passes `hf_walk_ref` to run the plain version on the same tensors."""
+    waiting for the device.  `walk` is `hf_walk` by default, which also
+    takes the packed section lengths and `stats_out`; a card run passes
+    `hf_walk_ref` to run the plain version on the same tensors."""
     out = _planes(d, ncells_max, out)
     cap = hard_bound(d["ncells_all"]) if cap_steps is None else cap_steps
+    kw = {}
+    if walk in (None, hf_walk):
+        kw = dict(nbits=d.get("nbits"), stats_out=stats_out)
     st = (walk or hf_walk)(d["words"], d["init"] if init is None else init, d["nc"],
                            d["lut"], d["lane"], d["nat"], out, cap, d["use_prefix"],
-                           d["prefix_width"])
+                           d["prefix_width"], **kw)
     return out, st
 
 

@@ -151,6 +151,29 @@ def _launch(name: str, fn, device: torch.device, *args) -> None:
     _count(name)
 
 
+def _entropy_scratch(fn: str, device, *args) -> torch.Tensor:
+    """The int32 scratch an entropy entry point needs (`fn` gives its size
+    from the launch's shapes)."""
+    from ._build import load_kernels
+
+    n = int(getattr(load_kernels(), fn)(*args))
+    return torch.empty(max(n, 2), dtype=torch.int32, device=device)
+
+
+def _sync_stats(stats_out, scratch: torch.Tensor, L: int, W: int) -> None:
+    """Put a sync-design launch's statistics into `stats_out["sync"]`, when
+    the caller passed a dict: (L, 4) int32 on the card, per lane the rounds
+    of the chase (the fused first included), the longest chase in
+    subsequences, the subsequences re-decoded after the first round and the
+    subsequences."""
+    if stats_out is None:
+        return
+    from ._build import load_kernels
+
+    at = int(load_kernels().j40tt_sync_stats_at(L, W))
+    stats_out["sync"] = scratch[at:at + 4 * L].view(L, 4).clone()
+
+
 def _dct8_grid(lib, n: int, device: torch.device) -> int:
     tiles = -(-n // lib.j40tt_tile_blocks())
     sms = torch.cuda.get_device_properties(device).multi_processor_count

@@ -32,6 +32,7 @@ from .device_entropy import (
     hybrid_luts,
     pack_prefix_lut,
     pack_streams,
+    stream_bits,
 )
 
 #: the plain version of `decode_tokens_device`: j40_tpu's lockstep decoder
@@ -57,7 +58,8 @@ def build_lane_inputs(streams, nsym, specs, cids=None) -> dict:
     table row); cids: per lane an int array of the cluster of each token
     (static-property trees), or None when every lane decodes from its
     spec's cluster 0.  All specs must agree on use_prefix.  Returns numpy
-    arrays words (L, W) uint16, skips (L,), nsym (L,), rows (L,), the
+    arrays words (L, W) uint16, skips (L,), nbits (L,) (the section lengths
+    in bits, `stream_bits`), nsym (L,), rows (L,), the
     tables sym (R, C*S), fb (R, C*F), mb/a/lo (R, C*amax), lsb (R, C),
     cids (L, n_steps) or None; and use_prefix, n_steps."""
     L = len(streams)
@@ -101,7 +103,8 @@ def build_lane_inputs(streams, nsym, specs, cids=None) -> dict:
         for li, c in enumerate(cids):
             cid[li, : len(c)] = c
     flat = lambda a: a.reshape(R, -1)
-    return dict(words=words.astype(np.uint16), skips=skips, nsym=nsym, rows=rows,
+    return dict(words=words.astype(np.uint16), skips=skips, nbits=stream_bits(streams),
+                nsym=nsym, rows=rows,
                 sym=flat(sym), fb=flat(fb), mb=flat(hyb[0]), a=flat(hyb[1]),
                 lo=flat(hyb[2]), lsb=lsb, cids=cid, use_prefix=use_prefix,
                 n_steps=n_steps)
@@ -144,44 +147,67 @@ def _check_inputs(words, skip_bits, nsym, cids, sym, fb, mb, a, lo, lsb, rows,
     return C, S, F, amax
 
 
+def design(use_prefix: bool, has_cids: bool) -> str:
+    """The kernel design a launch takes: "sync" (the self-synchronising
+    decode, prefix lanes with one cluster each) or "serial" (one thread per
+    lane: rANS lanes, per-token clusters)."""
+    return "sync" if use_prefix and not has_cids else "serial"
+
+
 def decode_tokens_device(words, skip_bits, nsym, cids, sym, fb, mb, a, lo, lsb,
-                         n_steps: int, use_prefix: bool, rows=None):
+                         n_steps: int, use_prefix: bool, rows=None, nbits=None,
+                         stats_out=None):
     """Decode up to `n_steps` hybrid-int values per lane (each lane stops at
     its `nsym`): words (L, W) int16 holding uint16 stream words, skip_bits,
     nsym and rows (L,) int32 (None: lane l reads row l), cids (L, >=
     n_steps) int32 or None, the tables (R, ...) int32 as build_lane_inputs
-    packs them; decode_tokens_ref's signature.  Returns (values
-    (L, n_steps) int32, final rANS state (L,) int32 bit pattern, final bit
-    position (L,) int32 from the lane's even-byte base).  CUDA tensors go
-    to the kernel (or raise), CPU tensors to the plain version."""
+    packs them; decode_tokens_ref's signature, and two optional arguments of
+    the kernel: nbits (L,) int32, each lane's section length in bits from
+    its even-byte base (the sync design decodes in parallel up to there;
+    None: up to the lane's last nonzero word), and stats_out, a dict that
+    receives the sync design's statistics (kernels._sync_stats).  Returns
+    (values (L, n_steps) int32, final rANS state (L,) int32 bit pattern,
+    final bit position (L,) int32 from the lane's even-byte base).  CUDA
+    tensors go to the kernel (or raise), CPU tensors to the plain version."""
     if rows is None:
         rows = torch.arange(words.shape[0], dtype=torch.int32, device=words.device)
     C, S, F, amax = _check_inputs(words, skip_bits, nsym, cids, sym, fb, mb, a, lo,
                                   lsb, rows, n_steps, use_prefix)
+    if nbits is not None:
+        K._check("nbits", nbits, (words.shape[0],), torch.int32)
     ts = [words, skip_bits, nsym, sym, fb, mb, a, lo, lsb, rows]
-    if not K._on_cuda(*ts, *([] if cids is None else [cids])):
+    if not K._on_cuda(*ts, *(t for t in (cids, nbits) if t is not None)):
         return decode_tokens_ref(words, skip_bits, nsym, cids, sym, fb, mb, a, lo, lsb,
                                  n_steps=n_steps, use_prefix=use_prefix, rows=rows)
-    L = words.shape[0]
+    (L, W), R = words.shape, sym.shape[0]
     out = torch.empty((L, n_steps), dtype=torch.int32, device=words.device)
     st = torch.empty((2, L), dtype=torch.int32, device=words.device)
-    K._launch("tokens", "j40tt_tokens", words.device, words.data_ptr(), words.shape[1],
+    scratch = K._entropy_scratch("j40tt_tokens_scratch", words.device, L, W, R, C, S,
+                                 int(use_prefix), int(cids is not None))
+    K._launch("tokens", "j40tt_tokens", words.device, words.data_ptr(), W,
               skip_bits.data_ptr(), nsym.data_ptr(), rows.data_ptr(),
               0 if cids is None else cids.data_ptr(), 0 if cids is None else cids.shape[1],
               sym.data_ptr(), fb.data_ptr(), mb.data_ptr(), a.data_ptr(), lo.data_ptr(),
               lsb.data_ptr(), C, S, F, amax, int(use_prefix), out.data_ptr(), n_steps,
-              st.data_ptr(), L)
+              st.data_ptr(), L, R, scratch.data_ptr(),
+              0 if nbits is None else nbits.data_ptr())
+    if design(use_prefix, cids is not None) == "sync":
+        K._sync_stats(stats_out, scratch, L, W)
     return out, st[0], st[1]
 
 
-def launch_tokens(d: dict, n_steps: int | None = None, decode=None):
+def launch_tokens(d: dict, n_steps: int | None = None, decode=None, stats_out=None):
     """One token launch over the tensors of a packed input
     (`hf_kernels.to_device`),
     at most `n_steps` symbols per lane (default: every lane to its end).
-    `decode` is `decode_tokens_device` by default; a card run passes
+    `decode` is `decode_tokens_device` by default, which also takes the
+    packed section lengths and `stats_out`; a card run passes
     `decode_tokens_ref` to run the plain version on the same tensors."""
+    kw = {}
+    if decode in (None, decode_tokens_device):
+        kw = dict(nbits=d.get("nbits"), stats_out=stats_out)
     return (decode or decode_tokens_device)(
         d["words"], d["skips"], d["nsym"], d["cids"], d["sym"], d["fb"], d["mb"],
         d["a"], d["lo"], d["lsb"],
         n_steps=d["n_steps"] if n_steps is None else int(n_steps),
-        use_prefix=d["use_prefix"], rows=d["rows"])
+        use_prefix=d["use_prefix"], rows=d["rows"], **kw)

@@ -432,3 +432,69 @@ def test_token_kernel_rows_past_shared_memory(cuda):
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
     np.testing.assert_array_equal(got[0].cpu().numpy()[0], vals)
+
+
+@pytest.mark.parametrize("name", ["never_in_step", "single_zero_bits", "single_extra_bits",
+                                  "short", "ragged", "zero_runs"])
+def test_token_kernel_sync_cases(cuda, name):
+    """B6's self-synchronising design on the adversarial lanes of
+    tests/test_torch_sync_decode.py (a code that never falls into step,
+    single-symbol codes with and without extra bits, lanes shorter than a
+    subsequence, lanes of very different lengths, runs of the all-zero
+    codeword), uncapped and capped inside a subsequence, with the section
+    lengths and without: equal to the plain version, with the chase
+    statistics of the numpy model."""
+    from test_torch_sync_decode import check_tokens, token_case
+
+    from j40_tpu_torch.ops import token_kernels as TKN
+    from j40_tpu_torch.ops.hf_kernels import to_device
+
+    d = token_case(name)
+    assert TKN.design(d["use_prefix"], d["cids"] is not None) == "sync"
+    for packed in (d, dict(d, nbits=None)):
+        stats: dict = {}
+        for n_steps in (None, 1, 40, 257):
+            K.reset_launches()
+            got = TKN.launch_tokens(to_device(packed, cuda), n_steps,
+                                    stats_out=stats if n_steps is None else None)
+            want = TKN.launch_tokens(to_device(packed, "cpu"), n_steps)
+            torch.cuda.synchronize()
+            assert K.launches["tokens"] == 1
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b)
+        model = check_tokens(packed)  # uncapped
+        assert stats["sync"].cpu().tolist() == [
+            [m["rounds"], m["chase"], m["redecoded"], m["subs"]] for m in model]
+
+
+@pytest.mark.parametrize("name", ["hf_blocks", "hf_count_above_63", "hf_overrun",
+                                  "hf_ans_blocks", "hf_ans_count_above_63", "hf_ans_overrun"])
+def test_hf_kernel_sync_cases(cuda, name):
+    """B4's prefix design (the parallel decode, then the structure pass) and
+    its rANS design (a decoding thread, a walking warp and the ring between
+    them, which the first lane's values overrun) on synthetic sections:
+    uncapped, capped inside a block, resumed from a mid-lane snapshot, a
+    count above 63 and an overrun; planes and snapshots equal to the plain
+    version's (`ii` where `err` is 0)."""
+    from test_torch_sync_decode import hf_ans_case, hf_case, same_snapshot
+
+    from j40_tpu_torch.ops import hf_kernels as HK
+
+    d = (hf_ans_case if "ans" in name else hf_case)(name)
+    assert HK.design(d["use_prefix"]) == ("serial" if "ans" in name else "sync")
+    ncmax = max(d["ncells_all"])
+    results = []
+    for dev in (cuda, "cpu"):
+        t = HK.to_device(d, dev)
+        runs = [HK.launch_hf(t, ncmax)]
+        for cap in (1, 37, 200):
+            out, st = HK.launch_hf(t, ncmax, cap_steps=cap)
+            runs += [(out.clone(), st), HK.launch_hf(t, ncmax, init=st, out=out)]
+        torch.cuda.synchronize()
+        results.append([x.cpu() for run in runs for x in run])
+    for a, b in zip(*results):
+        if a.shape == (HK.ST_ROWS, d["L"]):  # a snapshot: ii where err is 0
+            assert all(same_snapshot(a[:, l], b[:, l]) for l in range(d["L"]))
+        else:
+            assert torch.equal(a, b)
+    assert bool(results[0][1][6, 0]) == (not name.endswith("blocks"))
