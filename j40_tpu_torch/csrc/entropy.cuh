@@ -1,5 +1,5 @@
 // What the entropy-decode kernels of csrc/ share: the bit readers, the
-// fused table entry of the redesigned B4/B6 chains and the opt-in to dynamic
+// fused table entry of the B4/B6 serial chains and the opt-in to dynamic
 // shared memory above 48 KB.  Included by hf.cu (B4, B5), tokens.cu (B6)
 // and prefix_sync.cuh.
 #pragma once
@@ -14,8 +14,8 @@ constexpr int kSmemDefault = 48 * 1024;
 // LSB-first bit buffer over one lane's 16-bit words; zeros past the end, as
 // the host reader pads a section that runs short.  After refill() at least
 // 49 bits are buffered: a symbol reads at most 33 (16 renormalization bits
-// or a prefix code of <= 15, then <= 17 hybrid-int bits).  B5's walk and
-// the short decodes of the self-synchronising phases use it.
+// or a prefix code of <= 15, then <= 17 hybrid-int bits).  The short
+// decodes of the self-synchronising phases and their serial tails use it.
 struct Bits {
   const uint16_t* w;
   int nw;

@@ -476,6 +476,12 @@ def design(use_prefix: bool) -> str:
     return "sync" if use_prefix else "serial"
 
 
+#: the design of every B5 launch: one decoding thread per lane that forms
+#: the next symbol's context for both outcomes of a coefficient while the
+#: symbol decodes, and a walking warp (csrc/hf.cu hf_ctx_kernel)
+CTX_DESIGN = "lookahead"
+
+
 def hf_walk(words, init, ncells, lut, lane, nat, out, cap_steps: int,
             use_prefix: bool, prefix_width: int, nbits=None, stats_out=None):
     """Walk up to `cap_steps` symbols of each lane's single-cluster DCT8

@@ -498,3 +498,70 @@ def test_hf_kernel_sync_cases(cuda, name):
         else:
             assert torch.equal(a, b)
     assert bool(results[0][1][6, 0]) == (not name.endswith("blocks"))
+
+
+@pytest.mark.parametrize("h,w", [(8, 8), (16, 16), (8, 40), (24, 24), (40, 40), (72, 56),
+                                 (200, 72), (128, 264)])
+def test_epf_fused_tiles(cuda, h, w):
+    """B8's regrouped step on planes of 8 and 16 rows and columns, one
+    32-pixel tile +- 8, and planes that are not a multiple of the tile, for
+    1-3 steps with skipped blocks (every fourth, and the corner ones); the
+    same planes at XYB scale within 1e-5."""
+    for scale, atol in ((50.0, 2e-3), (0.1, 1e-5)):
+        rng = np.random.default_rng(h * w)
+        ch = torch.from_numpy(rng.normal(size=(3, h, w)).astype(np.float32) * scale)
+        rs8 = (np.abs(rng.normal(size=(h // 8, w // 8))) * 2.5 / scale
+               + 0.02).astype(np.float32)
+        rs8.flat[::4] = -1.0
+        rs8[-1, -1] = -1.0
+        rs8 = torch.from_numpy(rs8)
+        for iters in (1, 2, 3):
+            steps = FK.frame_steps(iters, 0.9, 6.5)
+            K.reset_launches()
+            got = FK.epf_fused(ch.to(cuda), rs8.to(cuda), steps, CS, 2.78)
+            torch.cuda.synchronize()
+            assert K.launches["epf_fused"] == 1
+            ref = FK.epf_fused_ref(ch, rs8, steps, CS, 2.78)
+            assert (got.cpu() - ref).abs().max().item() <= atol, (scale, iters)
+
+
+@pytest.mark.parametrize("name", ["ctx_blocks", "ctx_count_above_63", "ctx_overrun",
+                                  "ctx_clusters16"])
+def test_hf_ctx_kernel_chain_cases(cuda, name):
+    """B5's lookahead design on the synthetic sections of
+    tests/test_torch_hf_ctx_chain.py (a lane longer than the value ring, a
+    count above 63, an overrun, 16 clusters: more than one table per
+    cluster and state slot would fit in shared memory): uncapped, capped
+    right after a nonzero count, a coefficient, a block's end inside a cell
+    and a cell's end on lane 0 and at the corrupt lane's fault, each resumed
+    from its snapshot; planes and snapshots equal to the plain version's
+    (`ii` where `err` is 0)."""
+    from test_torch_hf_ctx_chain import ctx_case, model_walk, same_snapshot
+
+    from j40_tpu_torch.ops import hf_kernels as HK
+
+    d = ctx_case(name)
+    _, values, events = model_walk(d, 0, 10**6, d["init"][:, 0])
+    caps = [None, len(values) - 1, len(values), len(values) + 1]
+    caps += [next(i + 1 for i, e in enumerate(events) if e == kind and i > 30)
+             for kind in ("count", "coef", "channel", "cell")]
+    results = []
+    for dev in (cuda, "cpu"):
+        t = HK.to_device(d, dev)
+        runs = []
+        for cap in caps:
+            K.reset_launches()
+            out, st = HK.launch_hf_ctx(t, d["ncmax"], d["nb"], cap_steps=cap)
+            runs += [(out.clone(), st), HK.launch_hf_ctx(t, d["ncmax"], d["nb"], init=st,
+                                                         out=out)]
+            torch.cuda.synchronize()
+            assert K.launches["hf_ctx"] == (2 if dev == cuda else 0)
+        results.append([x.cpu() for run in runs for x in run])
+    for a, b in zip(*results):
+        if a.shape == (HK.CTX_ST_ROWS, d["L"]):
+            assert all(same_snapshot(a[:, l], b[:, l]) for l in range(d["L"]))
+        else:
+            assert torch.equal(a, b)
+    st = results[0][1]
+    assert st[HK.CTX_DONE_ROW].all()
+    assert bool(st[6, 0]) == (name in ("ctx_count_above_63", "ctx_overrun"))

@@ -1,0 +1,154 @@
+"""Interleaved A/B timing, on one CUDA card, of a kernel from this
+checkout's library and from one built out of another copy of
+`j40_tpu_torch/csrc/`.
+
+    python3 tools/torch_kernel_ab.py OTHER_CSRC_DIR[,OTHER2,...] [PAIRS] [CASE]
+
+CASE is one of chip_smoke.py's inputs: hf_ans_2048 (the default; B4's
+rANS walk of the single-cluster stream's lanes), hf_ctx_2048 (B5, the
+5-cluster stream) or epf_fused_12f (B8's 3 steps on config 12F's first
+2048x2048 LF group).  Both libraries load into one process (as
+tools/ab_native.py does for the host core) and take turns on the same
+inputs, the order reversed every round (with several other copies, each
+is a library B1, B2, ... in the same rounds): an HF walk is one uncapped call
+between CUDA events a turn, B8 20 calls.  Each library must first pass
+the case's check: an HF walk gives the host plan's coefficient planes,
+ends every lane and leaves the final rANS state 0x130000; B8 stays within
+chip_smoke.XYB_ATOL of its plain version.  Prints one JSON line: per
+library the median ms (and for an HF walk ns per symbol of the longest
+lane), and for each other library the median of the per-round ratios to
+A.
+"""
+
+import ctypes
+import json
+import statistics
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+
+def other_library(csrc: Path, ref, subdir: str = "ab_other"):
+    """Build the sources of `csrc` (the file names of _build.SOURCES and
+    HEADERS) into their own build directory and bind them as `ref` is."""
+    from j40_tpu_torch.ops import _build
+
+    saved = _build.SOURCES, _build.HEADERS, _build.BUILD_DIR
+    _build.SOURCES = [csrc / s.name for s in saved[0]]
+    _build.HEADERS = [csrc / s.name for s in saved[1]]
+    _build.BUILD_DIR = REPO / "build" / subdir
+    try:
+        path = _build.build()
+    finally:
+        _build.SOURCES, _build.HEADERS, _build.BUILD_DIR = saved
+    lib = ctypes.CDLL(str(path))
+    for name, fn in ref.__dict__.items():
+        if hasattr(fn, "argtypes"):
+            g = getattr(lib, name)
+            g.argtypes, g.restype = fn.argtypes, fn.restype
+    return lib
+
+
+def hf_case(name: str, dev):
+    """The lanes of chip_smoke.py's hf stream `name`: a call (uncapped, into
+    one scratch plane), its check against the host plan's planes, and the
+    longest lane's symbols (the per-symbol unit)."""
+    import torch
+
+    import chip_smoke as CS
+    from j40_tpu_torch.ops import device_vardct as DV
+    from j40_tpu_torch.ops import hf_kernels as HK
+
+    clusters = {"hf_ans_2048": 1, "hf_ctx_2048": 5}[name]
+    p = CS.hf_plan(CS.hf_stream(clusters))
+    batch = DV.hf_batches(p["lanes"])[0]
+    ncmax = max(ln.gw8 * ln.gh8 for ln in batch)
+    d, launch, done_row = DV.pack_hf_batch(p["vd"], p["spec"], batch, p["orders"],
+                                           p["ctx"], dev)
+    assert not d.get("use_prefix") and p["ctx"] == (clusters > 1), name
+    host = torch.from_numpy(CS.host_coeffs(p["vd"], batch, ncmax)).to(dev)
+
+    def check() -> None:
+        out, st = launch(ncmax)
+        s = HK.lane_state(st, len(batch), done_row)
+        assert torch.equal(out, host) and s["done"].all() and not s["err"].any()
+        assert (s["ans_state"] == 0x130000).all()
+
+    scratch = torch.empty_like(host)
+    longest = int(CS.lane_symbols(host, d["nat"], d["nc"]).max())
+    return (lambda: launch(ncmax, out=scratch)), check, dict(
+        lanes=len(batch), longest_lane_symbols=longest, unit=longest, reps=1)
+
+
+def epf_case(dev):
+    """B8 on config 12F's first 2048x2048 LF group, as chip_smoke.py's
+    epf_fused row: its 3 steps on the gaborish output of the group's XYB
+    plane, checked within XYB_ATOL of the plain version."""
+    import chip_smoke as CS
+    from j40_tpu_torch.ops import filter_kernels as FK
+    from j40_tpu_torch.ops.combine import _mixed_xyb, to_device
+
+    g = next(g for g in CS.group_inputs(CS.config12f(), apply_filters=True)
+             if g["h8"] * g["w8"] == 65536)
+    t = to_device(g, dev)
+    filt, epf = t["filters"], t["filters"]["epf"]
+    xyb = _mixed_xyb(t["i8"], t["exc_idx"], t["exc_val"], t["aux"], t["weights"],
+                     t["consts22"], (), (), t["h8"], t["w8"])
+    plane = FK.gaborish(xyb, filt["gab"])
+    steps = FK.frame_steps(epf["iters"], epf["p0_scale"], epf["p2_scale"])
+    args = (plane, filt["rs8"], steps, epf["channel_scale"], epf["border_sad_mul"])
+    ref = FK.epf_fused_ref(*args)
+
+    def check() -> None:
+        assert (FK.epf_fused(*args) - ref).abs().max().item() <= CS.XYB_ATOL
+
+    return (lambda: FK.epf_fused(*args)), check, dict(shape=list(plane.shape), reps=20)
+
+
+def main() -> int:
+    import torch
+
+    import chip_smoke as CS
+    from j40_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    pairs = int(sys.argv[2]) if len(sys.argv) > 2 else 20
+    case = sys.argv[3] if len(sys.argv) > 3 else "hf_ans_2048"
+    dev = torch.device("cuda", torch.cuda.current_device())
+    libs = {"A": _build.load_kernels()}
+    others = sys.argv[1].split(",")
+    for j, other in enumerate(others):
+        name = "B" if len(others) == 1 else f"B{j + 1}"
+        libs[name] = other_library(Path(other).resolve(), libs["A"], f"ab_other{j}")
+    call, check, info = epf_case(dev) if case == "epf_fused_12f" else hf_case(case, dev)
+    for lib in libs.values():
+        _build._lib = lib
+        check()
+
+    keys = list(libs)
+    times: dict[str, list[float]] = {k: [] for k in keys}
+    for i in range(pairs + 2):  # the first two rounds warm up
+        for k in (keys if i % 2 == 0 else keys[::-1]):
+            _build._lib = libs[k]
+            ms = CS.event_ms(call, info["reps"])
+            if i >= 2:
+                times[k].append(ms)
+    _build._lib = libs["A"]
+    unit = info.pop("unit", None)
+    print(json.dumps({
+        "case": case, **info, "pairs": pairs, "card": torch.cuda.get_device_name(dev),
+        "others": dict(zip(keys[1:], others)),
+        **{k: {"ms": statistics.median(v), "ms_min": min(v), "ms_max": max(v),
+               **({"ns_per_symbol": statistics.median(v) * 1e6 / unit} if unit else {})}
+           for k, v in times.items()},
+        **{f"ratio_{k.lower()}_over_a": statistics.median(
+            b / a for a, b in zip(times["A"], times[k])) for k in keys[1:]}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
