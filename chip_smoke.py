@@ -431,16 +431,19 @@ def phase_kernels(inp3: dict, inp4: dict, dev) -> list[dict]:
     g12 = K.reconstruct_dct8_srgb(*a3[:3], c12, *a3[4:], False).long()
     r12 = K.reconstruct_dct8_srgb_ref(*a3[:3], c12, *a3[4:], False).long()
     assert ((g12 - r12).abs() <= torch.clamp_min(1e-5 * r12.abs(), 1)).all()
-    kt = K._idct8_on(dev).T.contiguous()
+    # the yardstick's dense 64x64 IDCT operator (the kernels take the 8x8
+    # basis G, 64 floats, by value)
+    kt = torch.from_numpy(K.idct8_matrix()).to(dev).T.contiguous()
     flat3 = dense3.reshape(-1, 64)
     b = bound(dense3.numel() * 4 + d3["aux"].numel() * 4 + 64 * 3 * 4
-              + 64 * 64 * 4 + 22 * 4 + got.numel(), dct8_ops(n3, True))
+              + 64 * 4 + 22 * 4 + got.numel(), dct8_ops(n3, True))
     rows.append(dict(
         name="reconstruct_dct8_srgb", route="cuda",
         source="j40_tpu_torch/csrc/reconstruct.cu",
         replaces="j40_tpu/ops/pallas_kernels.py:171",
         shape=f"n={n3} blocks -> {tuple(got.shape)} u8", max_abs_err=float(err),
         ms=device_ms(lambda: K.reconstruct_dct8_srgb(*a3, True)),
+        ms_events=event_ms(lambda: K.reconstruct_dct8_srgb(*a3, True), 20),
         plain_ms=device_ms(lambda: K.reconstruct_dct8_srgb_ref(*a3, True)),
         bound_ms=b[0], bound_by=b[1],
         library_ms=device_ms(lambda: torch.matmul(flat3, kt)),
@@ -458,13 +461,14 @@ def phase_kernels(inp3: dict, inp4: dict, dev) -> list[dict]:
     assert err <= 1e-4, f"reconstruct_dct8 disagrees: {err}"
     flat4 = dense4.reshape(-1, 64)
     b = bound(dense4.numel() * 4 + d4["aux"].numel() * 4 + 64 * 3 * 4
-              + 64 * 64 * 4 + 8 * 4 + got.numel() * 4, dct8_ops(n4, False))
+              + 64 * 4 + 8 * 4 + got.numel() * 4, dct8_ops(n4, False))
     rows.append(dict(
         name="reconstruct_dct8", route="cuda",
         source="j40_tpu_torch/csrc/reconstruct.cu",
         replaces="j40_tpu/ops/pallas_kernels.py:39",
         shape=f"n={n4} blocks -> {tuple(got.shape)} f32", max_abs_err=err,
         ms=device_ms(lambda: K.reconstruct_dct8(*a4)),
+        ms_events=event_ms(lambda: K.reconstruct_dct8(*a4), 20),
         plain_ms=device_ms(lambda: K.reconstruct_dct8_ref(*a4)),
         bound_ms=b[0], bound_by=b[1],
         library_ms=device_ms(lambda: torch.matmul(flat4, kt)),

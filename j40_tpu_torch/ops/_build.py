@@ -95,10 +95,9 @@ def load_kernels():
             return _lib
         lib = ctypes.CDLL(str(build()))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.j40tt_reconstruct_dct8.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        lib.j40tt_reconstruct_dct8.argtypes = [p, p, p, p, p, p, i, i, i, p]
         lib.j40tt_reconstruct_dct8.restype = i
-        lib.j40tt_reconstruct_dct8_srgb.argtypes = [
-            p, p, p, p, p, p, i, i, i, i, i, p]
+        lib.j40tt_reconstruct_dct8_srgb.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
         lib.j40tt_reconstruct_dct8_srgb.restype = i
         lib.j40tt_xyb_to_srgb.argtypes = [p, p, p, ll, i, i, p]
         lib.j40tt_xyb_to_srgb.restype = i
@@ -126,7 +125,5 @@ def load_kernels():
         lib.j40tt_sync_stats_at.restype = ll
         lib.j40tt_error_string.argtypes = [i]
         lib.j40tt_error_string.restype = ctypes.c_char_p
-        lib.j40tt_tile_blocks.argtypes = []
-        lib.j40tt_tile_blocks.restype = i
         _lib = lib
         return lib

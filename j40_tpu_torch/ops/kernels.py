@@ -22,7 +22,7 @@ import threading
 import numpy as np
 import torch
 
-from ..vardct.dct import inverse_dct2d
+from ..vardct.dct import inverse_dct2d, inverse_matrix
 from . import reconstruct as R
 
 #: kernel launches since the last reset_launches(), by wrapper name (the
@@ -81,8 +81,10 @@ def idct8_matrix() -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _idct8_on(device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(idct8_matrix()).to(device)
+def _basis8() -> np.ndarray:
+    """The 8-point inverse DCT basis G (float32, host memory), which the
+    DCT8 kernels take by value: samples = G @ c @ G.T, as R.idct2d_batch."""
+    return np.ascontiguousarray(inverse_matrix(8), dtype=np.float32)
 
 
 # ---------------------------------------------------------------- plain versions
@@ -174,12 +176,6 @@ def _sync_stats(stats_out, scratch: torch.Tensor, L: int, W: int) -> None:
     stats_out["sync"] = scratch[at:at + 4 * L].view(L, 4).clone()
 
 
-def _dct8_grid(lib, n: int, device: torch.device) -> int:
-    tiles = -(-n // lib.j40tt_tile_blocks())
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(tiles, 4 * sms))
-
-
 def _check_dct8(coeffs, aux, weights, consts, n_consts, h8, w8):
     n = h8 * w8
     _check("coeffs", coeffs, (3, n, 64))
@@ -199,15 +195,13 @@ def reconstruct_dct8_srgb(coeffs, aux, weights, consts22, h8: int, w8: int,
     _check_dct8(coeffs, aux, weights, consts22, 22, h8, w8)
     if not _on_cuda(coeffs, aux, weights, consts22):
         return reconstruct_dct8_srgb_ref(coeffs, aux, weights, consts22, h8, w8, to_u8)
-    from ._build import load_kernels
-
     dev = coeffs.device
     out = torch.empty((3, 8 * h8, 8 * w8), device=dev,
                       dtype=torch.uint8 if to_u8 else torch.int32)
     _launch("reconstruct_dct8_srgb", "j40tt_reconstruct_dct8_srgb", dev,
             coeffs.data_ptr(), aux.data_ptr(), weights.data_ptr(),
-            _idct8_on(dev).data_ptr(), consts22.data_ptr(), out.data_ptr(),
-            h8 * w8, h8, w8, int(to_u8), _dct8_grid(load_kernels(), h8 * w8, dev))
+            _basis8().ctypes.data, consts22.data_ptr(), out.data_ptr(),
+            h8 * w8, h8, w8, int(to_u8))
     return out
 
 
@@ -219,14 +213,12 @@ def reconstruct_dct8(coeffs, aux, weights, consts, h8: int, w8: int):
     _check_dct8(coeffs, aux, weights, consts, 8, h8, w8)
     if not _on_cuda(coeffs, aux, weights, consts):
         return reconstruct_dct8_ref(coeffs, aux, weights, consts, h8, w8)
-    from ._build import load_kernels
-
     dev = coeffs.device
     out = torch.empty((3, 8 * h8, 8 * w8), device=dev, dtype=torch.float32)
     _launch("reconstruct_dct8", "j40tt_reconstruct_dct8", dev,
             coeffs.data_ptr(), aux.data_ptr(), weights.data_ptr(),
-            _idct8_on(dev).data_ptr(), consts.data_ptr(), out.data_ptr(),
-            h8 * w8, h8, w8, _dct8_grid(load_kernels(), h8 * w8, dev))
+            _basis8().ctypes.data, consts.data_ptr(), out.data_ptr(),
+            h8 * w8, h8, w8)
     return out
 
 

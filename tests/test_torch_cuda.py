@@ -73,7 +73,12 @@ def _int_close(a, b):
     assert (d <= torch.clamp_min(1e-5 * b.abs(), 1)).all(), d.max()
 
 
-@pytest.mark.parametrize("h8,w8", [(1, 1), (5, 7), (8, 8), (23, 29), (128, 128)])
+# the separable kernel's strips are runs of up to 16 blocks of one block
+# row: w8 of 1, 15, 17, 33 and 300 at h8 of 1 and 3 put the ragged right
+# edge and the 8-byte u8 rows of odd w8 at each place in a strip
+@pytest.mark.parametrize("h8,w8", [(1, 1), (5, 7), (8, 8), (23, 29), (128, 128),
+                                   (1, 15), (1, 17), (1, 33), (1, 300), (3, 1),
+                                   (3, 15), (3, 17), (3, 33), (3, 300)])
 def test_dct8_kernels_vs_plain(cuda, h8, w8):
     args = [t.to(cuda) for t in _inputs(h8, w8)]
     for maxval, to_u8 in ((255.0, True), (4095.0, False)):
@@ -83,6 +88,22 @@ def test_dct8_kernels_vs_plain(cuda, h8, w8):
         _int_close(got, K.reconstruct_dct8_srgb_ref(*args, c22, h8, w8, to_u8))
     got = K.reconstruct_dct8(*args, c22[:8], h8, w8)
     ref = K.reconstruct_dct8_ref(*args, c22[:8], h8, w8)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= FTOL
+
+
+@pytest.mark.parametrize("h8,w8", [(4, 9), (3, 45), (256, 256)])
+def test_dct8_zero_cells_and_full_group(cuda, h8, w8):
+    """B2 on a mixed-style grid (every third cell zero in coefficients and
+    aux, as a mixed group's big-block cells are) gives exactly 0 there and
+    agrees with the plain version elsewhere, up to a full 2048x2048 LF
+    group (the main path's shape)."""
+    q, aux, w = (t.to(cuda) for t in _inputs(h8, w8))
+    c8 = _consts22(255.0)[:8].to(cuda)
+    got = K.reconstruct_dct8(q, aux, w, c8, h8, w8)
+    ref = K.reconstruct_dct8_ref(q, aux, w, c8, h8, w8)
+    cells = got.reshape(3, h8, 8, w8, 8).permute(0, 1, 3, 2, 4).reshape(3, h8 * w8, 64)
+    assert (cells[:, ::3] == 0).all()
     assert torch.isfinite(got).all()
     assert (got - ref).abs().max().item() <= FTOL
 

@@ -102,7 +102,21 @@ inline cudaError_t cudaGetLastError() { int e = shim_last_error; shim_last_error
 template <typename K> inline cudaError_t cudaFuncSetAttribute(K, int, int) { return 0; }
 inline const char* cudaGetErrorString(cudaError_t e) { return e ? "shim error" : "no error"; }
 inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) { std::memset(p, v, n); return 0; }
-enum { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
+enum { cudaDevAttrMultiProcessorCount = 16, cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
-inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 232448; return 0; }
+// two SMs of one CTA each: a persistent grid walks several tiles a CTA
+inline cudaError_t cudaDeviceGetAttribute(int* v, int a, int) {
+  *v = a == cudaDevAttrMultiProcessorCount ? 2 : 232448;
+  return 0;
+}
+template <typename K> inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) { *n = 1; return 0; }
 inline float __frcp_rn(float x) { return 1.0f / x; }
+inline unsigned __float_as_uint(float f) { unsigned x; std::memcpy(&x, &f, 4); return x; }
+// a + b rounded toward -inf (the double sum of two floats is exact here)
+inline float __fadd_rd(float a, float b) {
+  const double d = (double)a + (double)b;
+  float r = (float)d;
+  if ((double)r > d) r = std::nextafter(r, -INFINITY);
+  return r;
+}
+inline float __int_as_float(int x) { float f; std::memcpy(&f, &x, 4); return f; }

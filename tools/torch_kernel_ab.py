@@ -6,18 +6,28 @@ checkout's library and from one built out of another copy of
 
 CASE is one of chip_smoke.py's inputs: hf_ans_2048 (the default; B4's
 rANS walk of the single-cluster stream's lanes), hf_ctx_2048 (B5, the
-5-cluster stream) or epf_fused_12f (B8's 3 steps on config 12F's first
-2048x2048 LF group).  Both libraries load into one process (as
-tools/ab_native.py does for the host core) and take turns on the same
-inputs, the order reversed every round (with several other copies, each
-is a library B1, B2, ... in the same rounds): an HF walk is one uncapped call
-between CUDA events a turn, B8 20 calls.  Each library must first pass
-the case's check: an HF walk gives the host plan's coefficient planes,
-ends every lane and leaves the final rANS state 0x130000; B8 stays within
-chip_smoke.XYB_ATOL of its plain version.  Prints one JSON line: per
-library the median ms (and for an HF walk ns per symbol of the longest
-lane), and for each other library the median of the per-round ratios to
-A.
+5-cluster stream), epf_fused_12f (B8's 3 steps on config 12F's first
+2048x2048 LF group), dct8_srgb_c3 (B1 on config 3's LF group, u8),
+dct8_xyb_c4 (B2 on config 4's first mixed 2048x2048 LF group),
+dct8_xyb_c4_cold (the same with the L2 cold: a 128 MB scratch buffer is
+written before every call) or xyb_srgb_c4 (B3 to u8 on B2's output
+plane of that group, as chip_smoke.py's row).  Both libraries load into
+one process (as tools/ab_native.py does for the host core) and take turns
+on the same inputs, the order reversed every round (with several other
+copies, each is a library B1, B2, ... in the same rounds): an HF walk is
+one uncapped call between CUDA events a turn, B8 20 calls between CUDA
+events, B1, B2 and B3 20 calls queued behind a sleep kernel, each
+between its own CUDA events (the median of a turn): these kernels take
+less time than the wrapper's launch path, so events around calls that
+the host has not queued ahead would time the host.  Each library must first pass the case's check: an HF
+walk gives the host plan's coefficient planes, ends every lane and leaves
+the final rANS state 0x130000; B8 stays within chip_smoke.XYB_ATOL of its
+plain version, B1 and B3 within 1 level and B2 within 1e-4 of theirs
+(chip_smoke's bars).  A copy whose DCT8 entry points take the dense 64x64
+operator (`kmat`, the sources before the separable kernel) is called
+through that interface.  Prints one JSON line: per library the median ms
+(and for an HF walk ns per symbol of the longest lane), and for each
+other library the median of the per-round ratios to A.
 """
 
 import ctypes
@@ -48,6 +58,14 @@ def other_library(csrc: Path, ref, subdir: str = "ab_other"):
         if hasattr(fn, "argtypes"):
             g = getattr(lib, name)
             g.argtypes, g.restype = fn.argtypes, fn.restype
+    # DCT8 entry points of the dense 64x64 operator: a device pointer to
+    # it, and a grid of j40tt_tile_blocks()-block tiles from the caller
+    lib.dct8_kmat = "const float* kmat" in (csrc / "reconstruct.cu").read_text()
+    if lib.dct8_kmat:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.j40tt_reconstruct_dct8.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        lib.j40tt_reconstruct_dct8_srgb.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+        lib.j40tt_tile_blocks.argtypes, lib.j40tt_tile_blocks.restype = [], i
     return lib
 
 
@@ -107,6 +125,112 @@ def epf_case(dev):
     return (lambda: FK.epf_fused(*args)), check, dict(shape=list(plane.shape), reps=20)
 
 
+def dct8_case(name: str, dev):
+    """B1 (u8) on config 3's LF group or B2 on config 4's first mixed
+    2048x2048 LF group, as chip_smoke.py's rows take them, through the
+    wrapper, or through the dense-operator interface for a library that
+    has it; checked within 1 level (B1) or 1e-4 (B2) of the plain version."""
+    import torch
+
+    import chip_smoke as CS
+    from j40_tpu_torch.ops import _build
+    from j40_tpu_torch.ops import kernels as K
+    from j40_tpu_torch.ops.combine import to_device
+
+    srgb = name == "dct8_srgb_c3"
+    if srgb:
+        g = CS.group_inputs(CS.config3())[0]
+    else:
+        g = next(g for g in CS.group_inputs(CS.config4())
+                 if g["kind"] == "mixed" and g["h8"] * g["w8"] == 65536)
+    t = to_device(g, dev)
+    dense = K.unpack_i8(t["i8"], t["exc_idx"], t["exc_val"])
+    h8, w8 = t["h8"], t["w8"]
+    consts = t["consts22"] if srgb else t["consts22"][:8].contiguous()
+    args = (dense, t["aux"], t["weights"], consts, h8, w8)
+    kmat = torch.from_numpy(K.idct8_matrix()).to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def dense_operator_call(lib):
+        n = h8 * w8
+        out = torch.empty((3, 8 * h8, 8 * w8), device=dev,
+                          dtype=torch.uint8 if srgb else torch.float32)
+        grid = max(1, min(-(-n // lib.j40tt_tile_blocks()), 4 * sms))
+        ptrs = (dense.data_ptr(), t["aux"].data_ptr(), t["weights"].data_ptr(),
+                kmat.data_ptr(), consts.data_ptr(), out.data_ptr(), n, h8, w8)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = (lib.j40tt_reconstruct_dct8_srgb(*ptrs, 1, grid, stream) if srgb
+              else lib.j40tt_reconstruct_dct8(*ptrs, grid, stream))
+        if rc:
+            raise RuntimeError(f"{name}: {lib.j40tt_error_string(rc).decode()} ({rc})")
+        return out
+
+    def call():
+        lib = _build.load_kernels()
+        if getattr(lib, "dct8_kmat", False):
+            return dense_operator_call(lib)
+        return K.reconstruct_dct8_srgb(*args, True) if srgb else K.reconstruct_dct8(*args)
+
+    ref = K.reconstruct_dct8_srgb_ref(*args, True) if srgb else K.reconstruct_dct8_ref(*args)
+
+    def check() -> None:
+        got = call()
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= (1 if srgb else 1e-4), (name, err)
+
+    return call, check, dict(shape=[3, 8 * h8, 8 * w8], reps=20, queued=True,
+                             cold=name.endswith("_cold"))
+
+
+def xyb_case(dev):
+    """B3 (to u8) on B2's output plane of config 4's first mixed 2048x2048 LF
+    group, made by this checkout's library; within 1 level of its plain
+    version."""
+    import chip_smoke as CS
+    from j40_tpu_torch.ops import kernels as K
+    from j40_tpu_torch.ops.combine import to_device
+
+    g = next(g for g in CS.group_inputs(CS.config4())
+             if g["kind"] == "mixed" and g["h8"] * g["w8"] == 65536)
+    t = to_device(g, dev)
+    dense = K.unpack_i8(t["i8"], t["exc_idx"], t["exc_val"])
+    plane = K.reconstruct_dct8(dense, t["aux"], t["weights"],
+                               t["consts22"][:8].contiguous(), t["h8"], t["w8"])
+    c22 = t["consts22"]
+    ref = K.xyb_to_srgb_ref(plane, c22, True)
+
+    def call():
+        return K.xyb_to_srgb(plane, c22, True)
+
+    def check() -> None:
+        assert (call().int() - ref.int()).abs().max().item() <= 1
+
+    return call, check, dict(shape=list(plane.shape), reps=20, queued=True)
+
+
+def queued_ms(fn, reps: int, before=None) -> float:
+    """Device time per call of `fn`: CUDA events right around each of `reps`
+    calls (each after `before()` if given, which stays outside the pair),
+    queued behind a ~5 ms sleep kernel, so that the card runs the calls
+    back to back and the events time the kernel, not the wrapper's launch
+    path.  On an H100 this reads ~4 us above CUPTI's kernel records; CUPTI
+    sessions around these short kernels have lost all their records."""
+    import torch
+
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(10_000_000)
+    for a, b in pairs:
+        if before is not None:
+            before()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
 def main() -> int:
     import torch
 
@@ -124,23 +248,37 @@ def main() -> int:
     for j, other in enumerate(others):
         name = "B" if len(others) == 1 else f"B{j + 1}"
         libs[name] = other_library(Path(other).resolve(), libs["A"], f"ab_other{j}")
-    call, check, info = epf_case(dev) if case == "epf_fused_12f" else hf_case(case, dev)
+    if case == "epf_fused_12f":
+        call, check, info = epf_case(dev)
+    elif case == "xyb_srgb_c4":
+        call, check, info = xyb_case(dev)
+    elif case.startswith("dct8_"):
+        call, check, info = dct8_case(case, dev)
+    else:
+        call, check, info = hf_case(case, dev)
     for lib in libs.values():
         _build._lib = lib
         check()
 
+    queued = info.pop("queued", False)
+    flush = None
+    if info.pop("cold", False):
+        scratch = torch.empty(32 << 20, device=dev)  # 128 MB, over the 50 MB L2
+        flush = lambda: scratch.fill_(1.0)  # noqa: E731
     keys = list(libs)
     times: dict[str, list[float]] = {k: [] for k in keys}
     for i in range(pairs + 2):  # the first two rounds warm up
         for k in (keys if i % 2 == 0 else keys[::-1]):
             _build._lib = libs[k]
-            ms = CS.event_ms(call, info["reps"])
+            ms = (queued_ms(call, info["reps"], flush) if queued
+                  else CS.event_ms(call, info["reps"]))
             if i >= 2:
                 times[k].append(ms)
     _build._lib = libs["A"]
     unit = info.pop("unit", None)
     print(json.dumps({
-        "case": case, **info, "pairs": pairs, "card": torch.cuda.get_device_name(dev),
+        "case": case, **info, "timer": "queued CUDA events, median" if queued else "CUDA events",
+        "pairs": pairs, "card": torch.cuda.get_device_name(dev),
         "others": dict(zip(keys[1:], others)),
         **{k: {"ms": statistics.median(v), "ms_min": min(v), "ms_max": max(v),
                **({"ns_per_symbol": statistics.median(v) * 1e6 / unit} if unit else {})}
