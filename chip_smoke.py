@@ -50,7 +50,18 @@ which raises on failure (the script then exits non-zero):
    takes on the token kernel and the torch-op wavefronts.  The kernel
    launch counters, zeroed just before each path and read just after, show
    which kernels each went through;
-5. profile: one warm decode of configs 3, 4 and 12F under torch.profiler
+5. batch serving (j40_tpu_torch/parallel/batch.py) on two corpora of 64
+   512x512 images, bench.py's batch64 (all DCT8, prefix codes) and
+   photo64 (photo density, rANS): `decode_batch(batch64,
+   backend="torch")` (its fused route), `decode_batch_device` on both and
+   `decode_batch_device_hf(photo64)`, each equal to the per-image
+   `backend="torch"` decodes and within 1 level of the host plan, the HF
+   path equal to the pack path, B1 launched once a 16-image chunk and B4
+   once a 128-lane call; aggregate Mpix/s beside the host-serve yardstick
+   (host decode plus one upload of the RGBA); `render_rgba8_device` on
+   configs 3 and 4; then B1 at the chunk shape and B4 on one multi-spec
+   call of photo64 as kernel rows;
+6. profile: one warm decode of configs 3, 4 and 12F under torch.profiler
    (device busy time and idle share) and cProfile (host time by function),
    one each of config 4 and hf_ctx_2048 under `backend="device"`, and one
    each of the modular gradient stream and the e3 stream with a global tree
@@ -222,18 +233,61 @@ def make_stream(name: str) -> bytes:
     return STREAMS[name]()
 
 
-def encode_all() -> dict[str, bytes]:
+#: the batch-serving corpora (phase_batch): images a corpus, their side
+BATCH_N, BATCH_PX = 64, 512
+
+
+def batch_stream(i: int) -> bytes:
+    """Image i of `batch64`, bench.py _bench_batch64's corpus
+    (bench.py:135-149): _test_image(512, 512, seed=1000 + i), all DCT8."""
+    from j40_tpu_torch.encode.vardct_enc import encode_vardct
+
+    return encode_vardct(_test_image(BATCH_PX, BATCH_PX, seed=1000 + i))
+
+
+def photo_images() -> list[np.ndarray]:
+    """`photo64`'s images, bench.py _bench_serving_photo's (bench.py:511-534):
+    photo-density 512x512 content whose grain comes from one generator
+    (seed 7) drawn image after image, so they are made here, in order."""
+    size = BATCH_PX
+    rng = np.random.default_rng(7)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    out = []
+    for i in range(BATCH_N):
+        base = (96 + 60 * np.sin(xx / (31.0 + i % 7)) * np.cos(yy / (23.0 + i % 5))
+                + 40 * np.sin((xx + yy) / (71.0 + i % 11)))
+        out.append(np.stack([
+            base + 10 * np.sin(xx / (9.0 + 2 * c)) + rng.normal(0, 0.7, size=(size, size))
+            for c in range(3)], axis=-1).clip(0, 255).astype(np.uint8))
+    return out
+
+
+def photo_stream(img: np.ndarray) -> bytes:
+    """One `photo64` image encoded as bench.py does: single-cluster rANS
+    (VarDCTOptions(use_prefix=False)), all DCT8."""
+    from j40_tpu_torch.encode.vardct_enc import VarDCTOptions, encode_vardct
+
+    return encode_vardct(img, VarDCTOptions(use_prefix=False))
+
+
+def encode_all() -> dict:
     """Every stream, made by the port's encoders in worker processes (spawned,
     so that they share nothing with this process's CUDA context), one per
-    core at most."""
+    core at most; the batch corpora as lists of BATCH_N streams."""
     import multiprocessing as mp
     import os
     from concurrent.futures import ProcessPoolExecutor
 
     names = list(STREAMS)
+    photos = photo_images()
     with ProcessPoolExecutor(max_workers=min(len(names), os.cpu_count() or 4),
                              mp_context=mp.get_context("spawn")) as ex:
-        return dict(zip(names, ex.map(make_stream, names)))
+        single = ex.map(make_stream, names)
+        batch = ex.map(batch_stream, range(BATCH_N))
+        photo = ex.map(photo_stream, photos)
+        out = dict(zip(names, single))
+        out["batch64"], out["photo64"] = list(batch), list(photo)
+    return out
 
 
 # bench.py _bench_device_filters' EPF parameters, for the ragged-plane path
@@ -251,43 +305,97 @@ HF_CAP = 2000
 HF_OPS_PER_SYMBOL = 30
 
 
-def device_ms(fn) -> float:
+def device_ms(fn) -> float | None:
     """Median device time per call of `fn` over REPS calls after warm-up:
     the summed durations of the CUDA kernels it launches, as CUPTI records
-    them (torch.profiler).  CUDA events or a host clock around a call would
-    also time the Python launch path, which for these kernels takes longer
-    than the kernel.  Inputs stay in the 50 MB L2 where they fit, as on the
-    decode path, where each kernel reads what the step before it wrote."""
+    them (torch.profiler); None where CUPTI lost records in three sessions.
+    CUDA events or a host clock around a call would also time the Python
+    launch path, which for these kernels takes longer than the kernel.
+    Inputs stay in the 50 MB L2 where they fit, as on the decode path,
+    where each kernel reads what the step before it wrote."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    # a session may lose its first device record (29 of 30, three sessions
-    # running, on one kernel per call), so each session makes 2 more calls
-    # first, takes the kernels per call as the records over the calls
-    # rounded up, and times the last REPS calls' records.  A session with
-    # no device records (seen once, on cuBLAS's matmul) or more than one
-    # lost is profiled again, up to three times in all
+    # each session settles first, makes 2 more calls than it times, takes
+    # the kernels per call as the records over the calls rounded up, and
+    # times the last REPS calls' records.  A session with no device records
+    # (seen once, on cuBLAS's matmul) or more than one lost is profiled
+    # again, up to three times in all
     calls_made = REPS + 2
     seen = []
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            settle()
             for _ in range(calls_made):
                 fn()
             torch.cuda.synchronize()
         spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
+                       if e.device_type == DeviceType.CUDA and SETTLE_KERNEL not in e.name)
         seen.append(len(spans))
         per = -(-len(spans) // calls_made)
         if spans and len(spans) >= per * calls_made - 1:
-            break
-    assert spans and len(spans) >= per * calls_made - 1, \
-        f"{seen} kernel records in {calls_made} calls"
-    spans = spans[len(spans) - per * REPS:]
-    calls = [sum(b - a for a, b in spans[k * per:(k + 1) * per]) for k in range(REPS)]
-    return statistics.median(calls) / 1e3
+            spans = spans[len(spans) - per * REPS:]
+            calls = [sum(b - a for a, b in spans[k * per:(k + 1) * per])
+                     for k in range(REPS)]
+            return statistics.median(calls) / 1e3
+    TIMER_NOTES.append(f"device_ms: {seen} kernel records in {calls_made} calls")
+    print(TIMER_NOTES[-1])
+    return None
+
+
+def row_times(ms, plain_ms, library_ms=None) -> dict:
+    """`ms`, `plain_ms` and `library_ms` of one kernel row (the kernel, its
+    plain version, the library call or None) on ONE timer, named in
+    `timer`: CUPTI (device_ms) where it recorded all three, else CUDA
+    events queued behind a sleep kernel for all three (queued_ms, ~4 us
+    above CUPTI), so that a row never sets one timer against another."""
+    fns = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms)
+    got = {k: device_ms(f) for k, f in fns.items() if f is not None}
+    if all(v is not None for v in got.values()):
+        return {"library_ms": None, **got, "timer": "CUPTI"}
+    out = {k: (queued_ms(f, REPS) if f is not None else None) for k, f in fns.items()}
+    TIMER_NOTES.append(f"row_times: CUPTI lost records of {[k for k, v in got.items() if v is None]}"
+                       f"; the row timed by queued CUDA events: {out}")
+    print(TIMER_NOTES[-1])
+    return dict(out, timer="queued CUDA events")
+
+
+#: device_ms calls that CUPTI did not time (into build/chip_smoke.json)
+TIMER_NOTES: list[str] = []
+
+#: the kernel of torch.cuda._sleep, which settle() launches
+SETTLE_KERNEL = "spin_kernel"
+
+
+def settle() -> None:
+    """The start of every profiler session here.  After one session of
+    many records (a decode's profile), CUPTI lost records at the start of
+    every later session, and a short sleep kernel and 50 ms on the host
+    before the first timed call kept them all (tools/cupti_probe.py).  The
+    sleep kernel's own record (SETTLE_KERNEL) is never counted."""
+    torch.cuda._sleep(1_000_000)
+    torch.cuda.synchronize()
+    time.sleep(0.05)
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device time per call of `fn`: CUDA events right around each of `reps`
+    calls, queued behind a ~5 ms sleep kernel so that the card runs them
+    back to back and the events time the kernels, not the launch path
+    (tools/torch_kernel_ab.py's timer; ~4 us above CUPTI's records)."""
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(10_000_000)
+    for a, b in pairs:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
 def bound(nbytes: float, nops: float) -> tuple[float, str]:
@@ -442,11 +550,11 @@ def phase_kernels(inp3: dict, inp4: dict, dev) -> list[dict]:
         source="j40_tpu_torch/csrc/reconstruct.cu",
         replaces="j40_tpu/ops/pallas_kernels.py:171",
         shape=f"n={n3} blocks -> {tuple(got.shape)} u8", max_abs_err=float(err),
-        ms=device_ms(lambda: K.reconstruct_dct8_srgb(*a3, True)),
+        **row_times(lambda: K.reconstruct_dct8_srgb(*a3, True),
+                    lambda: K.reconstruct_dct8_srgb_ref(*a3, True),
+                    lambda: torch.matmul(flat3, kt)),
         ms_events=event_ms(lambda: K.reconstruct_dct8_srgb(*a3, True), 20),
-        plain_ms=device_ms(lambda: K.reconstruct_dct8_srgb_ref(*a3, True)),
         bound_ms=b[0], bound_by=b[1],
-        library_ms=device_ms(lambda: torch.matmul(flat3, kt)),
         library="torch.matmul (3n,64)x(64,64): the IDCT step alone",
     ))
 
@@ -467,11 +575,10 @@ def phase_kernels(inp3: dict, inp4: dict, dev) -> list[dict]:
         source="j40_tpu_torch/csrc/reconstruct.cu",
         replaces="j40_tpu/ops/pallas_kernels.py:39",
         shape=f"n={n4} blocks -> {tuple(got.shape)} f32", max_abs_err=err,
-        ms=device_ms(lambda: K.reconstruct_dct8(*a4)),
+        **row_times(lambda: K.reconstruct_dct8(*a4), lambda: K.reconstruct_dct8_ref(*a4),
+                    lambda: torch.matmul(flat4, kt)),
         ms_events=event_ms(lambda: K.reconstruct_dct8(*a4), 20),
-        plain_ms=device_ms(lambda: K.reconstruct_dct8_ref(*a4)),
         bound_ms=b[0], bound_by=b[1],
-        library_ms=device_ms(lambda: torch.matmul(flat4, kt)),
         library="torch.matmul (3n,64)x(64,64): the IDCT step alone",
     ))
 
@@ -490,9 +597,9 @@ def phase_kernels(inp3: dict, inp4: dict, dev) -> list[dict]:
         source="j40_tpu_torch/csrc/reconstruct.cu",
         replaces="j40_tpu/ops/pallas_kernels.py:274",
         shape=f"{tuple(plane.shape)} f32 -> u8", max_abs_err=float(err),
-        ms=device_ms(lambda: K.xyb_to_srgb(plane, c22, True)),
-        plain_ms=device_ms(lambda: K.xyb_to_srgb_ref(plane, c22, True)),
-        bound_ms=b[0], bound_by=b[1], library_ms=None, library=None,
+        **row_times(lambda: K.xyb_to_srgb(plane, c22, True),
+                    lambda: K.xyb_to_srgb_ref(plane, c22, True)),
+        bound_ms=b[0], bound_by=b[1], library=None,
     ))
     _print_rows(rows)
     return rows
@@ -501,7 +608,7 @@ def phase_kernels(inp3: dict, inp4: dict, dev) -> list[dict]:
 def _print_rows(rows: list[dict]) -> None:
     for r in rows:
         print(f"kernel {r['name']} [{r['shape']}]: {r['ms']:.4f} ms on the "
-              f"device, plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
+              f"device ({r['timer']}), plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max|err| {r['max_abs_err']}")
 
 
@@ -567,9 +674,8 @@ def phase_filter_kernels(inp: dict, dev) -> list[dict]:
         name="gaborish", route="cuda", source="j40_tpu_torch/csrc/filters.cu",
         replaces="j40_tpu/ops/pallas_filters.py:161",
         shape=f"{tuple(xyb.shape)} f32", max_abs_err=err,
-        ms=device_ms(lambda: FK.gaborish(xyb, gab)),
-        plain_ms=device_ms(lambda: FK.gaborish_ref(xyb, gab)),
-        bound_ms=b[0], bound_by=b[1], library_ms=device_ms(conv),
+        **row_times(lambda: FK.gaborish(xyb, gab), lambda: FK.gaborish_ref(xyb, gab), conv),
+        bound_ms=b[0], bound_by=b[1],
         library="F.conv2d depthwise 3x3 on a replicate pad (TF32 off)",
     ))
 
@@ -587,10 +693,9 @@ def phase_filter_kernels(inp: dict, dev) -> list[dict]:
         replaces="j40_tpu/ops/pallas_filters.py:413",
         shape=f"{tuple(plane.shape)} f32, steps {[k for _, k in steps]}, "
               f"{act} of {H * W} pixels filtered", max_abs_err=err,
-        ms=device_ms(lambda: FK.epf_fused(*args)),
+        **row_times(lambda: FK.epf_fused(*args), lambda: FK.epf_fused_ref(*args)),
         ms_events=event_ms(lambda: FK.epf_fused(*args), REPS),
-        plain_ms=device_ms(lambda: FK.epf_fused_ref(*args)),
-        bound_ms=b[0], bound_by=b[1], library_ms=None, library=None,
+        bound_ms=b[0], bound_by=b[1], library=None,
     ))
 
     ch, rs8 = ragged_plane(dev)
@@ -606,9 +711,9 @@ def phase_filter_kernels(inp: dict, dev) -> list[dict]:
         replaces="j40_tpu/ops/pallas_filters.py:82",
         shape=f"{tuple(ch.shape)} f32, steps {kinds}, one launch each",
         max_abs_err=err,
-        ms=device_ms(lambda: FK.epf_device(ch, rs8, **RAGGED_EPF)),
-        plain_ms=device_ms(lambda: ragged_ref(ch, rs8)),
-        bound_ms=b[0], bound_by=b[1], library_ms=None, library=None,
+        **row_times(lambda: FK.epf_device(ch, rs8, **RAGGED_EPF),
+                    lambda: ragged_ref(ch, rs8)),
+        bound_ms=b[0], bound_by=b[1], library=None,
     ))
     _print_rows(rows)
     return rows
@@ -706,30 +811,36 @@ def event_ms(fn, reps: int = 1) -> float:
 ENTROPY_KERNELS = ("sync_", "tokens_", "hf_")
 
 
-def kernel_split(fn, strict: bool) -> dict[str, float]:
+def kernel_split(fn, strict: bool) -> dict[str, float] | None:
     """Device ms per call of each entropy kernel `fn` launches: the median of
     that kernel's CUPTI records over REPS calls after warm-up.  Each kernel
     runs once a call, so a record that the profiler loses (as CUPTI
-    sometimes does) does not shift the others.  `strict`: fail when a
-    kernel lost more than two records."""
+    sometimes does) does not shift the others.  `strict`: a session where a
+    kernel lost more than two records is profiled again, up to three in
+    all; None when all three lost some."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            fn()
-        torch.cuda.synchronize()
-    recs: dict[str, list[float]] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and any(k in e.name for k in ENTROPY_KERNELS):
-            short = e.name.replace("(anonymous namespace)::", "").split("(")[0].split()[-1]
-            recs.setdefault(short, []).append((e.time_range.end - e.time_range.start) / 1e3)
-    assert not strict or recs and all(len(v) >= REPS - 2 for v in recs.values()), \
-        {k: len(v) for k, v in recs.items()}
-    return {k: statistics.median(v) for k, v in recs.items()}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            settle()
+            for _ in range(REPS):
+                fn()
+            torch.cuda.synchronize()
+        recs: dict[str, list[float]] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and any(k in e.name for k in ENTROPY_KERNELS):
+                short = e.name.replace("(anonymous namespace)::", "").split("(")[0].split()[-1]
+                recs.setdefault(short, []).append((e.time_range.end - e.time_range.start) / 1e3)
+        if not strict or recs and all(len(v) >= REPS - 2 for v in recs.values()):
+            return {k: statistics.median(v) for k, v in recs.items()}
+    TIMER_NOTES.append(f"kernel_split: records {({k: len(v) for k, v in recs.items()})} "
+                       f"of {REPS} calls in the third session")
+    print(f"kernel_split: {TIMER_NOTES[-1]}")
+    return None
 
 
 def entropy_ms(fn, design: str) -> tuple[float, str, float, dict]:
@@ -737,13 +848,17 @@ def entropy_ms(fn, design: str) -> tuple[float, str, float, dict]:
     CUDA events around 10 calls, and the device time by kernel.  The sync
     design's call is four or five short launches: CUPTI times them (between
     events the host's launch path would count, and the wrapper's input
-    checks); a serial call is one launch of milliseconds, timed between
-    events (CUPTI has lost records of such launches)."""
+    checks), or, where CUPTI loses their records, CUDA events around each
+    call queued behind a sleep kernel; a serial call is one launch of
+    milliseconds, timed between events (CUPTI has lost records of such
+    launches)."""
     ev = event_ms(fn, 10)
     split = kernel_split(fn, strict=design == "sync")
     if design == "sync":
+        if split is None:
+            return queued_ms(fn, REPS), "queued CUDA events", ev, {}
         return sum(split.values()), "CUPTI", ev, split
-    return ev, "CUDA events", ev, split
+    return ev, "CUDA events", ev, split or {}
 
 
 def sync_summary(stats: dict) -> dict | None:
@@ -776,14 +891,33 @@ def hf_row(name: str, cfg: str, p: dict, replaces: str, dev) -> dict:
     """One HF kernel row (phase_hf_kernels) on the first batch of the plan
     `p` of stream `cfg`."""
     from j40_tpu_torch.ops import device_vardct as DV
-    from j40_tpu_torch.ops import hf_kernels as HK
 
     batch = DV.hf_batches(p["lanes"])[0]
     ncmax = max(ln.gw8 * ln.gh8 for ln in batch)
     d, launch, done_row = DV.pack_hf_batch(p["vd"], p["spec"], batch, p["orders"],
                                            p["ctx"], dev)
     assert name == f"hf_{hf_mode(p)}", (name, hf_mode(p))
-    plain = HK.hf_ctx_walk_ref if p["ctx"] else HK.hf_walk_ref
+    return hf_measure(
+        dict(name=name, replaces=replaces, counter="hf_ctx" if p["ctx"] else "hf",
+             mode=hf_mode(p)),
+        f"{len(batch)} lanes of {cfg}", d, launch, done_row, ncmax,
+        [(p["vd"], batch)], p["spec"].use_prefix_code, p["ctx"], dev)
+
+
+def hf_measure(row: dict, what: str, d: dict, launch, done_row: int, ncmax: int,
+               parts: list, use_prefix: bool, ctx: bool, dev) -> dict:
+    """Check and time one HF kernel call over the packed lanes `d` (`launch`,
+    as ops/device_vardct.pack_hf_batch returns it): kernel and plain version
+    on the card, capped at HF_CAP symbols, give the same planes and
+    snapshots; uncapped, the kernel gives the host plan's coefficient planes
+    of `parts` ([(vardct state, lanes)], in lane order) exactly, ends every
+    lane (the final ANS state 0x130000 where rANS) and flags no error.
+    Returns `row` with the measurements."""
+    from j40_tpu_torch.ops import hf_kernels as HK
+
+    lanes = [ln for _, lns in parts for ln in lns]
+    plain = HK.hf_ctx_walk_ref if ctx else HK.hf_walk_ref
+    name = row["name"]
     out_k, st_k = launch(ncmax, cap_steps=HF_CAP)
     out_p, st_p = launch(ncmax, cap_steps=HF_CAP, walk=plain)
     torch.cuda.synchronize()
@@ -791,15 +925,16 @@ def hf_row(name: str, cfg: str, p: dict, replaces: str, dev) -> dict:
     assert torch.equal(out_k, out_p), f"{name}: planes differ from the plain version"
 
     stats: dict = {}
-    out, st = launch(ncmax, **({} if p["ctx"] else {"stats_out": stats}))
-    design = HK.CTX_DESIGN if p["ctx"] else HK.design(d["use_prefix"])
+    out, st = launch(ncmax, **({} if ctx else {"stats_out": stats}))
+    design = HK.CTX_DESIGN if ctx else HK.design(d["use_prefix"])
     sync = sync_summary(stats)
-    s = HK.lane_state(st, len(batch), done_row)
-    host = torch.from_numpy(host_coeffs(p["vd"], batch, ncmax)).to(dev)
+    s = HK.lane_state(st, len(lanes), done_row)
+    host = torch.from_numpy(np.concatenate(
+        [host_coeffs(vd, lns, ncmax) for vd, lns in parts])).to(dev)
     err = (out - host).abs().max().item()
     assert err == 0, f"{name}: planes differ from the host plan by {err}"
     assert s["done"].all() and not s["err"].any(), s
-    assert p["spec"].use_prefix_code or (s["ans_state"] == 0x130000).all()
+    assert use_prefix or (s["ans_state"] == 0x130000).all()
     sym = lane_symbols(out, d["nat"], d["nc"])
     nsym, longest = int(sym.sum()), int(sym.max())
 
@@ -810,16 +945,14 @@ def hf_row(name: str, cfg: str, p: dict, replaces: str, dev) -> dict:
                                        walk=plain))
     tables = sum(d[k].numel() * 4 for k in ("lut", "lane", "nat", "ab", "cmap",
                                             "cfgw", "nf", "bctx3") if k in d)
-    b = bound(sum(len(ln.data) for ln in batch) + tables + out.numel() * 4,
+    b = bound(sum(len(ln.data) for ln in lanes) + tables + out.numel() * 4,
               HF_OPS_PER_SYMBOL * nsym)
-    row = dict(
-        name=name, route="cuda", source="j40_tpu_torch/csrc/hf.cu",
-        replaces=replaces, counter="hf_ctx" if p["ctx"] else "hf",
-        mode=hf_mode(p),
-        shape=f"{len(batch)} lanes of {cfg}, up to {max(len(ln.data) for ln in batch)} B "
+    row.update(
+        route="cuda", source="j40_tpu_torch/csrc/hf.cu",
+        shape=f"{what}, up to {max(len(ln.data) for ln in lanes)} B "
               f"and {ncmax} cells -> {tuple(out.shape)} f32",
         max_abs_err=err, ms=ms, ms_at_cap=ms_cap, timer=timer, ms_events=ms_events,
-        plain_ms=plain_ms, plain_cap=HF_CAP,
+        plain_ms=plain_ms, plain_cap=HF_CAP, plain_timer="CUDA events",
         bound_ms=b[0], bound_by=b[1], library_ms=None, library=None,
         symbols=nsym, symbols_longest_lane=longest,
         ns_per_symbol=ms * 1e6 / longest, symbols_per_s=nsym / (ms * 1e-3),
@@ -929,7 +1062,8 @@ def token_row(name: str, cfg: str, batch: list, dev) -> dict:
               f"{'prefix' if packed['use_prefix'] else 'rANS'}), up to "
               f"{max(len(ln.data) for ln in batch)} B -> {tuple(vals.shape)} int32",
         max_abs_err=0, ms=ms, ms_at_cap=ms_cap, timer=timer, ms_events=ms_events,
-        plain_ms=plain_ms, plain_cap=TOKEN_CAP, bound_ms=b[0], bound_by=b[1],
+        plain_ms=plain_ms, plain_cap=TOKEN_CAP, plain_timer="CUDA events",
+        bound_ms=b[0], bound_by=b[1],
         library_ms=None, library=None, symbols=nsym, symbols_longest_lane=longest,
         ns_per_symbol=ms * 1e6 / longest, symbols_per_s=nsym / (ms * 1e-3),
         design=design, sync=sync, kernels_ms=split,
@@ -1021,6 +1155,270 @@ def phase_modular_path(name: str, data: bytes, plan: dict) -> dict:
     return out
 
 
+#: the batch paths of phase_batch: (path, corpus, function name); the
+#: decode_batch path is the fused route, which a uniform corpus takes
+BATCH_PATHS = (("batch64/decode_batch", "batch64", "decode_batch"),
+               ("batch64/decode_batch_device", "batch64", "decode_batch_device"),
+               ("photo64/decode_batch_device", "photo64", "decode_batch_device"),
+               ("photo64/decode_batch_device_hf", "photo64", "decode_batch_device_hf"))
+BATCH_WORKERS = 8  # the phase-1 thread pool: the card machine's cores
+
+
+def batch_call(fn: str, blobs: list, dev, stats: dict):
+    """One call of the batch API function `fn` as a server makes it; the
+    device paths' output stays on the card (synchronized before return)."""
+    from j40_tpu_torch.parallel import batch as PB
+
+    if fn == "decode_batch":
+        return PB.decode_batch(blobs, workers=BATCH_WORKERS, backend="torch", device=dev)
+    out = getattr(PB, fn)(blobs, workers=BATCH_WORKERS, chunk=16, stats_out=stats,
+                          device=dev)
+    torch.cuda.synchronize()
+    return out
+
+
+def busy(fn) -> tuple[float, float, int]:
+    """One call of `fn` under torch.profiler (device activity only): (wall
+    ms, device busy ms, device records)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        settle()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = [(e.time_range.end - e.time_range.start) for e in prof.events()
+             if e.device_type == DeviceType.CUDA and SETTLE_KERNEL not in e.name]
+    return wall, sum(spans) / 1e3, len(spans)
+
+
+def host_profile(fn, lines: int = 14) -> list[str]:
+    """The calling thread's functions by cumulative time over one call of
+    `fn` (cProfile: it sees no worker thread, so time a worker takes shows
+    as the wait for its result)."""
+    import cProfile
+    import io
+    import pstats
+
+    pr = cProfile.Profile()
+    pr.enable()
+    fn()
+    pr.disable()
+    s = io.StringIO()
+    pstats.Stats(pr, stream=s).sort_stats("cumulative").print_stats(lines)
+    return [ln for ln in s.getvalue().splitlines() if "(" in ln and "/" in ln]
+
+
+def phase_batch(streams: dict, dev) -> tuple[list[dict], dict]:
+    """The batch-serving paths (j40_tpu_torch/parallel/batch.py) on the
+    64-image corpora batch64 and photo64: decode_batch(backend="torch")
+    (its fused route), decode_batch_device (both corpora) and
+    decode_batch_device_hf (photo64).  Each output must equal the per-image
+    backend="torch" decodes exactly and the host plan within 1 level; the
+    HF path must equal decode_batch_device exactly; the launch counters,
+    zeroed just before each checked call and read just after, must show B1
+    once a 16-image chunk and B4 once a kernel call.  Then the times:
+    aggregate Mpix/s, the median of 3 warm calls after a 16-image warm-up,
+    beside the host-serve yardstick (decode_batch(backend="numpy") and one
+    upload of the stacked RGBA to the card, as bench.py:206-216), and one
+    profiled call of each device path.  Last, render_rgba8_device on
+    configs 3 and 4.  Returns (path records, serving summary)."""
+    from j40_tpu_torch.decode import Decoder
+    from j40_tpu_torch.ops import kernels as K
+    from j40_tpu_torch.parallel import batch as PB
+
+    refs = {}
+    for corpus in ("batch64", "photo64"):
+        blobs = streams[corpus]
+        per_image = np.stack([_decode(b, "torch")[1] for b in blobs])
+        host = np.stack(PB.decode_batch(blobs, workers=BATCH_WORKERS, backend="numpy"))
+        refs[corpus] = (per_image, host)
+    mpix = BATCH_N * BATCH_PX * BATCH_PX / 1e6
+
+    def host_serve(blobs):
+        rgba = np.stack(PB.decode_batch(blobs, workers=BATCH_WORKERS, backend="numpy"))
+        torch.from_numpy(rgba).to(dev)
+        torch.cuda.synchronize()
+
+    def median_s(fn) -> float:
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        return statistics.median(ts)
+
+    records, outs, serving = [], {}, {}
+    for path, corpus, fn in BATCH_PATHS:
+        blobs = streams[corpus]
+        per_image, host = refs[corpus]
+        K.reset_launches()
+        st: dict = {}
+        t0 = time.perf_counter()
+        out = batch_call(fn, blobs, dev, st)
+        first_s = time.perf_counter() - t0
+        launches = dict(K.launches)
+        if fn == "decode_batch":
+            got = np.stack(out)
+        else:
+            assert out.device == dev and out.dtype == torch.uint8 and out.is_contiguous()
+            got = out.cpu().numpy()
+        assert got.shape == per_image.shape, (path, got.shape)
+        assert np.array_equal(got, per_image), f"{path}: != the per-image torch decodes"
+        diff = int(np.abs(got[..., :3].astype(np.int16) - host[..., :3]).max())
+        assert diff <= 1, f"{path}: max|diff| {diff} vs the host plan"
+        outs[path] = got
+        chunks = -(-BATCH_N // 16)
+        want = {"reconstruct_dct8_srgb": chunks}
+        if fn == "decode_batch_device_hf":
+            # one lane a 256x256 pass group, MAX_LANES (128) lanes a call
+            want["hf"] = st["kernel_calls"]
+            assert st["kernel_calls"] == -(-BATCH_N * (-(-BATCH_PX // 256)) ** 2 // 128), st
+        ran = {k: v for k, v in launches.items() if v}
+        assert ran == want, f"{path}: launches {ran}, want {want}"
+
+        # timing: a 16-image warm-up, then the median of 3 warm calls
+        batch_call(fn, blobs[:16], dev, {})
+        stats_runs = []
+
+        def timed():
+            stats_runs.append({})
+            batch_call(fn, blobs, dev, stats_runs[-1])
+
+        secs = median_s(timed)
+        rec = dict(config=corpus, path=path, backend="torch", images=BATCH_N,
+                   size=f"{BATCH_PX}x{BATCH_PX}", launches=launches,
+                   first_call_s=first_s, median_s=secs, mpix_s=mpix / secs,
+                   max_abs_diff=diff)
+        if st:
+            mid = sorted(stats_runs, key=lambda x: x["total_s"])[1]
+            rec["stats"] = {k: mid[k] for k in ("total_s", "entropy_s", "pack_s",
+                                                "upload_bytes", "pack_kind", "lf_s",
+                                                "launch_s", "kernel_calls", "ready_s")
+                            if k in mid}
+            wall, dev_ms, nrec = busy(lambda: batch_call(fn, blobs, dev, {}))
+            rec["profile"] = dict(wall_ms=wall, device_busy_ms=dev_ms, records=nrec,
+                                  device_idle_share=1 - dev_ms / wall)
+            rec["host_cumulative"] = host_profile(lambda: batch_call(fn, blobs, dev, {}))
+        records.append(rec)
+        print(f"batch path {path} ({BATCH_N} x {BATCH_PX}x{BATCH_PX}, "
+              f"{sum(map(len, blobs))} B): {rec['mpix_s']:.2f} Mpix/s (median of 3), "
+              f"first call {first_s:.2f} s, launches {ran}, stats {rec.get('stats')}, "
+              f"profile {rec.get('profile')}, equal to the per-image torch decodes, "
+              f"max|diff| {diff} vs the host plan")
+        for ln in rec.get("host_cumulative", []):
+            print("  host", ln.strip()[:150])
+    assert np.array_equal(outs["photo64/decode_batch_device_hf"],
+                          outs["photo64/decode_batch_device"]), "HF path != pack path"
+
+    for corpus in ("batch64", "photo64"):
+        blobs = streams[corpus]
+        host_serve(blobs[:16])
+        hs = median_s(lambda: host_serve(blobs))
+        best = max((r for r in records if r["config"] == corpus and "stats" in r),
+                   key=lambda r: r["mpix_s"])
+        serving[corpus] = dict(host_serve_s=hs, host_serve_mpix_s=mpix / hs,
+                               best_device_path=best["path"],
+                               serve_speedup_vs_host=hs / best["median_s"])
+        print(f"host serve {corpus}: decode_batch(numpy) + one upload "
+              f"{mpix / hs:.2f} Mpix/s; serve_speedup_vs_host "
+              f"{serving[corpus]['serve_speedup_vs_host']:.3f} ({best['path']})")
+
+    for name in ("config3", "config4"):
+        dec = Decoder(streams[name], workers=4, keep_device_output=True)
+        dec.decode_frame()
+        got = dec.render_rgba8_device()
+        assert got.device == dev and got.dtype == torch.uint8
+        assert dec.stats["device_output"] == "planes", dec.stats["device_output"]
+        assert np.array_equal(got.cpu().numpy(), dec.render_rgba8()), name
+        serving[f"render_rgba8_device_{name}"] = dict(
+            route="planes", shape=list(got.shape), lf_groups=len(dec._device_planes))
+        print(f"render_rgba8_device {name}: {tuple(got.shape)} uint8 on {got.device} from "
+              f"{len(dec._device_planes)} LF groups' planes, equal to render_rgba8()")
+    return records, serving
+
+
+def batch_kernel_rows(streams: dict, dev) -> list[dict]:
+    """B1 at the batch paths' chunk shape (16 batch64 images stacked: n =
+    65,536 blocks -> (3, 8192, 512) u8) and B4 on one 128-lane multi-spec
+    call of photo64 (32 images' sections, each image's own rANS spec), each
+    checked and timed as the main path's rows are."""
+    from j40_tpu_torch.decode import Decoder
+    from j40_tpu_torch.native.bindings import serialize_spec
+    from j40_tpu_torch.ops import hf_kernels as HK
+    from j40_tpu_torch.ops import kernels as K
+    from j40_tpu_torch.parallel import batch as PB
+
+    paths = [p for p, _, _ in BATCH_PATHS]
+    decs = []
+    for b in streams["batch64"][:16]:
+        d = Decoder(b, device=dev)
+        d.decode_frame(_defer_finish=True)
+        decs.append(d)
+    plans = [PB._plan_uniform_packed(d) for d in decs]
+    h8, w8 = PB._plans_match(plans, decs)
+    kind, cup, exc_idx, exc_val, aux, kgrids = PB._assemble_chunk(plans, 16, h8 * w8, h8, w8)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    cup_d = K.unpack_i4(t(cup), (3, 16 * h8 * w8, 64)) if kind == "i4" else t(cup)
+    dense = K.unpack_i8(cup_d, t(exc_idx), t(exc_val))
+    a = (dense, PB._expand_aux(t(aux), t(kgrids), h8, w8),
+         t(np.asarray(plans[0][2], np.float32)), t(plans[0][3]), 16 * h8, w8)
+    got = K.reconstruct_dct8_srgb(*a, True)
+    err = (got.int() - K.reconstruct_dct8_srgb_ref(*a, True).int()).abs().max().item()
+    assert err <= 1, f"reconstruct_dct8_srgb at the chunk shape disagrees: {err}"
+    n = 16 * h8 * w8
+    kt = torch.from_numpy(K.idct8_matrix()).to(dev).T.contiguous()
+    flat = dense.reshape(-1, 64)
+    b = bound(dense.numel() * 4 + a[1].numel() * 4 + 64 * 3 * 4 + 64 * 4 + 22 * 4
+              + got.numel(), dct8_ops(n, True))
+    rows = [dict(
+        name="reconstruct_dct8_srgb_chunk", counter="reconstruct_dct8_srgb", paths=paths,
+        route="cuda", source="j40_tpu_torch/csrc/reconstruct.cu",
+        replaces="j40_tpu/ops/pallas_kernels.py:171",
+        shape=f"n={n} blocks (16 images of batch64, {kind} upload) -> "
+              f"{tuple(got.shape)} u8", max_abs_err=float(err),
+        **row_times(lambda: K.reconstruct_dct8_srgb(*a, True),
+                    lambda: K.reconstruct_dct8_srgb_ref(*a, True),
+                    lambda: torch.matmul(flat, kt)),
+        ms_events=event_ms(lambda: K.reconstruct_dct8_srgb(*a, True), 20),
+        bound_ms=b[0], bound_by=b[1],
+        library="torch.matmul (3n,64)x(64,64): the IDCT step alone",
+    )]
+    _print_rows(rows)
+
+    pes = []
+    for blob in streams["photo64"]:
+        d = Decoder(blob, backend="numpy", max_passes=0)
+        d.decode_frame(_defer_finish=True)
+        pe = PB._hf_plan(d)
+        if sum(len(x["lanes"]) for x in pes) + len(pe["lanes"]) > HK.MAX_LANES:
+            break
+        pes.append(pe)
+    nlanes = sum(len(pe["lanes"]) for pe in pes)
+    assert nlanes == HK.MAX_LANES or len(pes) == len(streams["photo64"]), nlanes
+    assert not any(pe["spec"].use_prefix_code for pe in pes)
+    ncmax = max(max(pe["ncells"]) for pe in pes)
+    d = HK.to_device(HK.build_multi_inputs(
+        [(pe["streams"], pe["ncells"], pe["spec"], pe["orders"]) for pe in pes]), dev)
+    nspecs = len({serialize_spec(pe["spec"]).tobytes() for pe in pes})
+
+    def launch(ncells_max, **kw):
+        return HK.launch_hf(d, ncells_max, **kw)
+
+    rows.append(hf_measure(
+        dict(name="hf_ans_multispec", counter="hf", paths=["photo64/decode_batch_device_hf"],
+             replaces="j40_tpu/ops/pallas_hf.py:71", specs=nspecs, images=len(pes)),
+        f"{nlanes} lanes of {len(pes)} photo64 images ({nspecs} distinct specs)", d,
+        launch, HK.DONE_ROW, ncmax, [(pe["vd"], pe["lanes"]) for pe in pes], False,
+        False, dev))
+    return rows
+
+
 def _decode(data: bytes, backend: str = "torch", filters: bool = False):
     """decode_file, or with the restoration filters the Decoder calls the
     CLI makes (decode_file has no filter option): (decoder, RGBA8)."""
@@ -1093,6 +1491,39 @@ def phase_main_path(name: str, data: bytes, want: set[str], filters: bool = Fals
     return out
 
 
+def gather_ab(name: str, data: bytes) -> dict:
+    """The host gather of each all-DCT8 LF group of a stream, as
+    `lf_group_inputs` makes it (one native pass, combine.gather_pack_dct8_i8)
+    and as it made it before (the numpy gather, combine.gather_full_dct8,
+    then combine._pack_i8; byte-equal, tests/test_torch_combine.py): the
+    median of 5 host calls of each, in turns, on this machine's CPU."""
+    from j40_tpu_torch.decode import Decoder
+    from j40_tpu_torch.ops import combine as C
+
+    dec = Decoder(data, backend="numpy")
+    dec.decode_frame(_defer_finish=True)
+    f, _toc, st = dec._deferred
+    vs = st.vardct
+    groups = [gg for gg in vs.lf_groups.values()
+              if ((np.asarray(gg.blocks) >> 20) == 2).all()]
+    native, numpy_ = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for gg in groups:
+            C.lf_group_inputs(vs, gg, st.im)
+        native.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for gg in groups:
+            C._pack_i8(C.gather_full_dct8(vs, gg, st.im, f)[0])
+        numpy_.append(time.perf_counter() - t0)
+    out = dict(config=name, dct8_groups=len(groups), native_s=statistics.median(native),
+               numpy_s=statistics.median(numpy_))
+    print(f"host gather {name} ({len(groups)} all-DCT8 LF groups): lf_group_inputs "
+          f"(native) {out['native_s'] * 1e3:.1f} ms, numpy gather + _pack_i8 "
+          f"{out['numpy_s'] * 1e3:.1f} ms (median of 5)")
+    return out
+
+
 def phase_profile(name: str, data: bytes, filters: bool = False,
                   backend: str = "torch", cpu_events: bool = True,
                   warm: bool = True) -> dict:
@@ -1121,10 +1552,9 @@ def phase_profile(name: str, data: bytes, filters: bool = False,
     # not measured
     for sessions in range(1, 4):
         with profile(activities=acts) as prof:
-            # a session may lose its first device record (one of config 4's
-            # two HF launches, in three runs): spend it on a tiny kernel
-            torch.ones(1, device="cuda").add_(1)
-            torch.cuda.synchronize()
+            # a session may lose its first device records (one of config
+            # 4's two HF launches, in three runs)
+            settle()
             K.reset_launches()
             t0 = time.perf_counter()
             _decode(data, backend, filters)
@@ -1133,7 +1563,7 @@ def phase_profile(name: str, data: bytes, filters: bool = False,
         launched = sum(K.launches.values())
         by_name: dict = {}  # name -> [device us, records]
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
+            if e.device_type == DeviceType.CUDA and SETTLE_KERNEL not in e.name:
                 rec = by_name.setdefault(e.name, [0.0, 0])
                 rec[0] += e.time_range.end - e.time_range.start
                 rec[1] += 1
@@ -1152,10 +1582,13 @@ def phase_profile(name: str, data: bytes, filters: bool = False,
     _decode(data, backend, filters)
     pr.disable()
     s = io.StringIO()
-    pstats.Stats(pr, stream=s).sort_stats("cumulative").print_stats(18)
+    ps = pstats.Stats(pr, stream=s)
+    ps.sort_stats("cumulative").print_stats(18)
     host = [ln for ln in s.getvalue().splitlines() if "(" in ln and "/" in ln]
+    # the host gather of the reconstruction inputs (PERF.md bottleneck 2)
+    gather_s = sum(v[3] for k, v in ps.stats.items() if k[2] == "lf_group_inputs")
     out = dict(config=name, backend=backend, wall_ms=wall_us / 1e3, sessions=sessions,
-               counted_launches=launched, kernel_records=own,
+               counted_launches=launched, kernel_records=own, lf_group_inputs_s=gather_s,
                device_records=sum(n for _, n in by_name.values()),
                device_busy_ms=device_us / 1e3 if complete else None,
                device_idle_share=1 - device_us / wall_us if complete else None,
@@ -1167,7 +1600,8 @@ def phase_profile(name: str, data: bytes, filters: bool = False,
                  f"{out['device_records']} kept)")
     print(f"profile {name}, backend={backend}: wall {wall_us / 1e3:.1f} ms, {busy} "
           f"(profiler sessions {sessions}; records of the port's kernels {own} for "
-          f"{launched} counted launches)")
+          f"{launched} counted launches); lf_group_inputs {gather_s * 1e3:.1f} ms "
+          f"cumulative under cProfile")
     for k, v, n in out["top_device_ms"]:
         print(f"  device {v:9.3f} ms in {n:3d} records  {k}")
     for ln in host:
@@ -1194,7 +1628,7 @@ def main() -> int:
     t0 = time.perf_counter()
     streams = encode_all()
     print(f"encode: {time.perf_counter() - t0:.1f} s, "
-          f"{ {k: len(v) for k, v in streams.items()} } bytes")
+          f"{ {k: len(v) if isinstance(v, bytes) else sum(map(len, v)) for k, v in streams.items()} } bytes")
     inp3 = group_inputs(streams["config3"])
     # with the filters' inputs too: the same arrays plus sigmas and weights
     inp4 = group_inputs(streams["config4"], apply_filters=True)
@@ -1220,7 +1654,8 @@ def main() -> int:
           f"{ {k: (len(p['lanes']), p['sections']) for k, p in mplans.items()} }")
     lap("encode and plans")
     kernels = (phase_kernels(inp3[0], big4, dev) + phase_filter_kernels(big12, dev)
-               + phase_hf_kernels(plans, dev) + phase_token_kernels(mplans, dev))
+               + phase_hf_kernels(plans, dev) + phase_token_kernels(mplans, dev)
+               + batch_kernel_rows(streams, dev))
     flat = phase_flat_probes(streams, dev)
     lap("kernels")
 
@@ -1246,15 +1681,25 @@ def main() -> int:
     lap("VarDCT main paths")
     mains += [phase_modular_path(k, streams[k], mplans[k]) for k in MODULAR]
     lap("modular main paths")
+    # batch serving (parallel/batch.py): B1 a chunk, B4 in multi-spec calls
+    batch_paths, serving = phase_batch(streams, dev)
+    mains += batch_paths
+    lap("batch paths")
     for r in kernels:
         # an HF row counts the launches of the device-route paths of its
-        # mode, a token row those of its own stream's
+        # mode, a token or batch row those of its own paths, any other row
+        # those of the single-stream paths (the batch rows count the batch
+        # paths' launches of the same kernel at their shape)
         paths = r.get("paths")
         if paths is None and "mode" in r:
             paths = [f"{k}/device" for k in hf_cfgs if hf_mode(plans[k]) == r["mode"]]
+        batch = {p for p, _, _ in BATCH_PATHS}
         r["launches"] = sum(m["launches"][r.get("counter", r["name"])] for m in mains
-                            if paths is None or m.get("path") in paths)
+                            if (m.get("path") in paths if paths is not None
+                                else m.get("path") not in batch))
         assert r["launches"] > 0, f"{r['name']} never launched on the main path"
+        assert r.get("timer"), f"{r['name']} names no timer"
+    gathers = [gather_ab(k, streams[k]) for k in ("config3", "config4")]
     profiles = [phase_profile(k, streams[k]) for k in ("config3", "config4")]
     profiles.append(phase_profile("config12f", streams["config12f"], filters=True))
     profiles += [phase_profile(k, streams[k], backend="device")
@@ -1268,13 +1713,19 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build=build, kernels=kernels, flat_probes=flat, main_path=mains,
+        serving=serving, host_gather=gathers, timer_notes=TIMER_NOTES,
         epf_skipped_blocks=skipped, profiles=profiles,
         seconds=time.perf_counter() - t_start), indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # the entropy rows add their design, its sync statistics, their rates,
-    # the timer of `ms` and the time between CUDA events around the call
-    extra = ("ns_per_symbol", "symbols_per_s", "design", "sync", "timer", "ms_events")
+    # every row names its timer (of `ms`, and of `plain_ms` and
+    # `library_ms` unless `plain_timer` says otherwise: the entropy rows'
+    # plain versions, capped, are timed between CUDA events as their
+    # `ms_at_cap` is); the entropy rows add their design, its sync
+    # statistics, their rates and the time between CUDA events around the
+    # call; the batch rows the paths whose launches they count
+    extra = ("timer", "plain_timer", "ns_per_symbol", "symbols_per_s", "design", "sync",
+             "ms_events", "paths")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in kernels]}))
     print(card["nvidia_smi"])

@@ -78,14 +78,11 @@ class Frame:
 BACKENDS = ("torch", "device", "numpy")
 
 
-def _check_backend(backend: str, keep_device_output: bool) -> None:
-    """Refuse what the port does not run yet, naming the ROADMAP item that
-    ports it (port: replaces resolve_backend)."""
+def check_backend(backend: str) -> None:
+    """Refuse a backend the port does not have (port: replaces
+    resolve_backend)."""
     if backend not in BACKENDS:
         raise Unsupported(message=f"backend {backend!r}: use one of {BACKENDS}")
-    if keep_device_output:
-        raise Unsupported(message="keep_device_output is not ported yet: "
-                          "ROADMAP A.5")
 
 
 class Decoder:
@@ -96,7 +93,7 @@ class Decoder:
                  max_passes: int | None = None, render_spot: bool = False,
                  streaming: bool = False, keep_device_output: bool = False,
                  device=None):
-        _check_backend(backend, keep_device_output)
+        check_backend(backend)
         self.backend = backend
         #: port: the torch device of the reconstruction; None means CUDA,
         #: and raises where there is none (never a silent CPU run)
@@ -107,8 +104,13 @@ class Decoder:
             self.device = resolve_device(device)
         self.apply_filters = apply_filters
         self.workers = workers
-        #: port: always False here (refused above until ROADMAP A.5)
+        #: keep per-LF-group device tensors from the torch reconstruction so
+        #: render_rgba8_device() can assemble RGBA on the card (serving
+        #: pipelines: decoded pixels feed a PyTorch model without an upload
+        #: of the host render; each plane is still fetched for the host
+        #: canvas, as without this option)
         self.keep_device_output = keep_device_output
+        self._device_planes = None  # [(top, left, h, w, dev_u8, ggh, ggw)]
         #: progressive decode: only the first `max_passes` passes of each
         #: frame are decoded (coarser but complete image; the TOC's per-pass
         #: sections make the rest skippable — spec §9.4)
@@ -442,6 +444,9 @@ class Decoder:
         prog = self._prog
         t_finish = time.perf_counter()
         state.finish()
+        if self.keep_device_output:
+            self._device_planes = getattr(state.vardct, "device_planes", None) \
+                if state.vardct is not None else None
         if f.log_upsampling or any(f.ec_log_upsampling):
             self._upsample_frame(f, state.gmodular)
         self.stats["reconstruct_s"] = time.perf_counter() - t_finish
@@ -616,9 +621,47 @@ class Decoder:
         return self._render(8)
 
     def render_rgba8_device(self):
-        """Device-resident RGBA (port: not ported yet, ROADMAP A.5)."""
-        raise Unsupported(message="render_rgba8_device is not ported yet: "
-                          "ROADMAP A.5")
+        """(h, w, 4) uint8 RGBA as a tensor on the decoder's device.
+
+        Serving fast path: when the frame reconstructed on the device
+        (`backend="torch"` or `"device"`, VarDCT, 8bpp, orientation TL, no
+        extra channels, full frame, `keep_device_output=True`), the
+        per-LF-group u8 planes are assembled into the RGBA canvas on the
+        card, so the RGBA is not uploaded from the host; decoded pixels feed
+        a PyTorch model directly.  The decode still fetches each plane for
+        the host canvas (`vardct/state.py`), so this route saves the upload,
+        not the fetch.  Anything else uploads the host render (correct, one
+        extra hop).  `stats["device_output"]` records the route taken:
+        "planes" or "host_render"."""
+        import torch
+
+        from .ops.kernels import resolve_device
+        from .vardct.state import _use_u8_planes
+
+        f = self.frame
+        assert f is not None, "decode a frame first"
+        im = self.image
+        planes = self._device_planes
+        fh = f.header
+        fast = (
+            planes
+            and _use_u8_planes(im, fh)  # full-frame REPLACE, no crop/blend
+            and int(im.orientation) == 1  # TL
+            and not im.ec_info
+            and fh.width == im.width
+            and fh.height == im.height
+            and all(dev.dtype == torch.uint8 for *_x, dev, _h, _w in planes)
+        )
+        if not fast:
+            self.stats["device_output"] = "host_render"
+            rgba = np.ascontiguousarray(self.render_rgba8())
+            return torch.from_numpy(rgba).to(resolve_device(self.device))
+        self.stats["device_output"] = "planes"
+        out = torch.full((4, im.height, im.width), 255, dtype=torch.uint8,
+                         device=planes[0][4].device)
+        for top, left, gh, gw, dev, _ggh, _ggw in planes:
+            out[:3, top : top + gh, left : left + gw] = dev[:, :gh, :gw]
+        return out.permute(1, 2, 0).contiguous()
 
     def _render(self, depth: int) -> np.ndarray:
         im = self.image

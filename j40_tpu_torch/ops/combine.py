@@ -82,6 +82,20 @@ def _class_pipeline(
     return out.reshape(3, n, 1 << log_rows, 1 << log_columns)
 
 
+def _exceptions(exc, vals, fill: int):
+    """The exception list of a packed upload: capacity bucketed to powers of
+    two (at least 64), slot 0 and the padding slots pointing at flat index 0
+    with its exact value `fill`, so duplicate writes carry the same value;
+    entries 1.. hold the flat positions `exc` and their exact `vals`."""
+    cap = max(64, 1 << int(len(exc)).bit_length())
+    exc_idx = np.zeros(cap, np.int32)
+    exc_val = np.full(cap, np.int32(fill), np.int32)
+    if len(exc):
+        exc_idx[1 : 1 + len(exc)] = exc
+        exc_val[1 : 1 + len(exc)] = vals
+    return exc_idx, exc_val
+
+
 def _pack_i8(arr: np.ndarray):
     """Narrowest lossless upload: clipped int8 plane + exact-value exception
     list (quantized HF coeffs rarely exceed |127|).  Exception capacity is
@@ -90,17 +104,41 @@ def _pack_i8(arr: np.ndarray):
     flat = arr.reshape(-1)
     cup = np.clip(arr, -127, 127).astype(np.int8)
     exc = np.flatnonzero(np.abs(flat) > 127).astype(np.int64)
-    cap = max(64, 1 << int(len(exc)).bit_length())
-    exc_idx = np.zeros(cap, np.int32)
-    exc_val = np.full(
-        cap,
-        np.int32(round(float(flat[0]))) if flat.size else np.int32(0),
-        np.int32,
-    )
-    if len(exc):
-        exc_idx[1 : 1 + len(exc)] = exc
-        exc_val[1 : 1 + len(exc)] = np.round(flat[exc]).astype(np.int32)
-    return cup, exc_idx, exc_val
+    fill = round(float(flat[0])) if flat.size else 0
+    return (cup, *_exceptions(exc, np.round(flat[exc]).astype(np.int32), fill))
+
+
+def _pack_i4(arr: np.ndarray):
+    """Nibble-packed upload: values in [-8, 7] as 4-bit biased codes, two
+    per byte along the last axis, plus an exact exception list.  Halves the
+    host->device bytes of the int8 pack on sparse/low-amplitude coefficient
+    planes (photo-like VarDCT content has |q| <= 7 for most coefficients);
+    noisy planes keep int8 through the byte accounting in
+    `pack_coeffs_auto`."""
+    assert arr.shape[-1] % 2 == 0
+    q = np.round(arr).astype(np.int32)
+    flat = q.reshape(-1)
+    u = (np.clip(q, -8, 7) + 8).astype(np.uint8)
+    packed = (u[..., 0::2] | (u[..., 1::2] << 4)).astype(np.uint8)
+    exc = np.flatnonzero((flat < -8) | (flat > 7)).astype(np.int64)
+    return (packed, *_exceptions(exc, flat[exc], flat[0] if flat.size else 0))
+
+
+def pack_coeffs_auto(arr: np.ndarray):
+    """Pick the narrowest lossless upload encoding for a coefficient plane:
+    4-bit biased nibbles vs clipped int8, each with an exact-value exception
+    list.  Returns (kind, packed, exc_idx, exc_val) with kind in
+    {"i4", "i8"}; the byte accounting includes the 8-byte-per-entry
+    exception cost so noisy planes keep the int8 form."""
+    # coefficient planes are integral-valued f32, so the magnitude tests run
+    # on the float array without a rounding pass
+    a = np.abs(arr.reshape(-1))
+    n = a.size
+    bytes4 = n // 2 + 8 * int(np.count_nonzero(a > 7))
+    bytes8 = n + 8 * int(np.count_nonzero(a > 127))
+    if bytes4 < bytes8:
+        return ("i4", *_pack_i4(arr))
+    return ("i8", *_pack_i8(arr))
 
 
 def _opsin_tail14(im) -> np.ndarray:
@@ -177,6 +215,48 @@ def _plan_aux_dct8(vs, gg, im, f, voffs, offs):
     )
     param_idx = DCT_SELECT[0][2]
     return aux, vs.dq_weights[param_idx], _pack_consts22(vs, im, f, consts)
+
+
+def _dct8_raster(gg):
+    """An all-DCT8 group's varblock offsets in raster order and their
+    coefficient offsets."""
+    blocks_arr = np.asarray(gg.blocks)
+    assert ((blocks_arr >> 20) == 2).all(), "not an all-DCT8x8 group"
+    voffs = (blocks_arr & 0xFFFFF).reshape(-1)
+    return blocks_arr, voffs, np.asarray(gg.vb_coeffoff)[voffs]
+
+
+def _dct8_coeffs(gg, offs) -> np.ndarray:
+    """(3, n, 64) float32: the blocks at coefficient offsets `offs`."""
+    cidx = offs[:, None] + np.arange(64)[None, :]
+    return np.stack([gg.coeffs[c][cidx] for c in range(3)]).astype(np.float32)
+
+
+def gather_full_dct8(vs, gg, im, f):
+    """Host gather for an all-DCT8x8 LF group, blocks in raster order:
+    returns (coeffs (3,n,64) f32, aux (6,n) f32, weights (64,3), consts22)
+    (counterpart of combine_jax.gather_full_dct8; the reference that the
+    one-pass `gather_pack_dct8_i8` is held against)."""
+    _, voffs, offs = _dct8_raster(gg)
+    return (_dct8_coeffs(gg, offs), *_plan_aux_dct8(vs, gg, im, f, voffs, offs))
+
+
+def gather_pack_dct8_i8(vs, gg, im, f):
+    """`gather_full_dct8` with the clamped-int8 upload form made in one
+    native pass over the coefficient planes (no dense f32 intermediate;
+    `native/core.cpp::j40t_gather_pack_dct8`).  Returns ((i8 (3,n,64),
+    exc_idx, exc_val, n_gt7, fill0), aux, weights, consts22): the
+    exceptions (|v| > 127) in image-flat order, n_gt7 the count of |v| > 7
+    (the i4-or-i8 choice of the batch path), fill0 the exact value of flat
+    position 0 (counterpart of combine_jax.gather_pack_dct8_i8)."""
+    from ..native.bindings import gather_pack_dct8, pack_coeffs_i8
+
+    blocks_arr, voffs, offs = _dct8_raster(gg)
+    packed = gather_pack_dct8(gg.coeffs, blocks_arr, offs=np.asarray(gg.vb_coeffoff))
+    if packed is None:  # no native library: dense gather + numpy pack
+        coeffs = _dct8_coeffs(gg, offs)
+        packed = (*pack_coeffs_i8(coeffs), int(coeffs.reshape(-1)[0]))
+    return (packed, *_plan_aux_dct8(vs, gg, im, f, voffs, offs))
 
 
 def _llf_positions(dctsel: int) -> np.ndarray:
@@ -266,49 +346,6 @@ def lf_group_inputs(vs, gg, im) -> dict:
         h8=ggh8, w8=ggw8, to_u8=im.bpp == 8, ggh=gg.height, ggw=gg.width,
         consts22=_pack_consts22(vs, im, f, consts),
     )
-    dense = np.zeros((3, n8, 64), np.float32)
-    aux = np.zeros((6, n8), np.float32)
-    bigs = []
-    for ds, voffs in sorted(classes.items()):
-        log_rows, log_columns, param_idx, _ = DCT_SELECT[ds]
-        rows, cols = 1 << log_rows, 1 << log_columns
-        size = rows * cols
-        llfsize = len(_llf_positions(ds))
-        offs = np.asarray(gg.vb_coeffoff)[voffs]
-        y8s, x8s = corner_y[voffs], corner_x[voffs]
-        lidx = (offs[:, None] >> 6) + np.arange(llfsize)[None, :]
-        lx = gg.llfcoeffs[0][lidx]
-        ly = gg.llfcoeffs[1][lidx]
-        lb = gg.llfcoeffs[2][lidx]
-        llf = np.stack([lx + ly * kx_lf, ly, lb + ly * kb_lf]).astype(np.float32)
-        hfmul_inv = np.asarray(gg.vb_hfmul_inv)[voffs].astype(np.float32)
-        kx = (
-            vs.base_corr_x
-            + vs.inv_colour_factor * np.asarray(gg.xfromy)[y8s // 8, x8s // 8]
-        ).astype(np.float32)
-        kb = (
-            vs.base_corr_b
-            + vs.inv_colour_factor * np.asarray(gg.bfromy)[y8s // 8, x8s // 8]
-        ).astype(np.float32)
-        cidx = offs[:, None] + np.arange(size)[None, :]
-        if ds == 0:
-            pos = y8s * ggw8 + x8s
-            for c in range(3):
-                dense[c][pos] = gg.coeffs[c][cidx]
-            aux[0:3, pos] = llf[:, :, 0]
-            aux[3, pos] = hfmul_inv
-            aux[4, pos] = kx
-            aux[5, pos] = kb
-        else:
-            coeffs = np.stack(
-                [gg.coeffs[c][cidx] for c in range(3)]
-            ).astype(np.float32)
-            W = ggw8 * 8
-            ys = y8s[:, None, None] * 8 + np.arange(rows)[None, :, None]
-            xs = x8s[:, None, None] * 8 + np.arange(cols)[None, None, :]
-            bidx = (ys * W + xs).astype(np.int32).reshape(-1)
-            bigs.append((int(ds), coeffs, llf, hfmul_inv, kx, kb,
-                         vs.dq_weights[param_idx], bidx))
     p8 = DCT_SELECT[0][2]
     if vs.dq_weights[p8] is None:
         # the dense-grid kernel always runs the DCT8 table, even when the
@@ -316,9 +353,59 @@ def lf_group_inputs(vs, gg, im) -> dict:
         from ..vardct.dequant import load_dq_matrix
 
         vs.dq_weights[p8] = load_dq_matrix(p8, vs.dq_matrix[p8])
-    cup, exc_idx, exc_val = _pack_i8(dense)
-    out.update(kind="mixed" if bigs else "dct8", i8=cup, exc_idx=exc_idx,
-               exc_val=exc_val, aux=aux, weights=vs.dq_weights[p8], bigs=bigs)
+    if set(classes) == {0}:
+        # every cell a DCT8 block: one native pass gathers and packs the
+        # coefficients (no dense f32 plane; combine_jax.gather_pack_dct8_i8)
+        (cup, exc, vals, _, fill0), aux, weights, _ = gather_pack_dct8_i8(vs, gg, im, f)
+        out.update(kind="dct8", i8=cup, aux=aux, weights=weights, bigs=[])
+        out["exc_idx"], out["exc_val"] = _exceptions(exc, vals, fill0)
+    else:
+        dense = np.zeros((3, n8, 64), np.float32)
+        aux = np.zeros((6, n8), np.float32)
+        bigs = []
+        for ds, voffs in sorted(classes.items()):
+            log_rows, log_columns, param_idx, _ = DCT_SELECT[ds]
+            rows, cols = 1 << log_rows, 1 << log_columns
+            size = rows * cols
+            llfsize = len(_llf_positions(ds))
+            offs = np.asarray(gg.vb_coeffoff)[voffs]
+            y8s, x8s = corner_y[voffs], corner_x[voffs]
+            lidx = (offs[:, None] >> 6) + np.arange(llfsize)[None, :]
+            lx = gg.llfcoeffs[0][lidx]
+            ly = gg.llfcoeffs[1][lidx]
+            lb = gg.llfcoeffs[2][lidx]
+            llf = np.stack([lx + ly * kx_lf, ly, lb + ly * kb_lf]).astype(np.float32)
+            hfmul_inv = np.asarray(gg.vb_hfmul_inv)[voffs].astype(np.float32)
+            kx = (
+                vs.base_corr_x
+                + vs.inv_colour_factor * np.asarray(gg.xfromy)[y8s // 8, x8s // 8]
+            ).astype(np.float32)
+            kb = (
+                vs.base_corr_b
+                + vs.inv_colour_factor * np.asarray(gg.bfromy)[y8s // 8, x8s // 8]
+            ).astype(np.float32)
+            cidx = offs[:, None] + np.arange(size)[None, :]
+            if ds == 0:
+                pos = y8s * ggw8 + x8s
+                for c in range(3):
+                    dense[c][pos] = gg.coeffs[c][cidx]
+                aux[0:3, pos] = llf[:, :, 0]
+                aux[3, pos] = hfmul_inv
+                aux[4, pos] = kx
+                aux[5, pos] = kb
+            else:
+                coeffs = np.stack(
+                    [gg.coeffs[c][cidx] for c in range(3)]
+                ).astype(np.float32)
+                W = ggw8 * 8
+                ys = y8s[:, None, None] * 8 + np.arange(rows)[None, :, None]
+                xs = x8s[:, None, None] * 8 + np.arange(cols)[None, None, :]
+                bidx = (ys * W + xs).astype(np.int32).reshape(-1)
+                bigs.append((int(ds), coeffs, llf, hfmul_inv, kx, kb,
+                             vs.dq_weights[param_idx], bidx))
+        cup, exc_idx, exc_val = _pack_i8(dense)
+        out.update(kind="mixed" if bigs else "dct8", i8=cup, exc_idx=exc_idx,
+                   exc_val=exc_val, aux=aux, weights=vs.dq_weights[p8], bigs=bigs)
     if getattr(vs.fs, "apply_filters", False) and (f.gab_enabled or f.epf_iters > 0):
         epf = epf_params(f) if f.epf_iters > 0 else None
         out["filters"] = dict(

@@ -244,17 +244,35 @@ def xyb_to_srgb(plane, consts22, to_u8: bool = True):
 
 def unpack_i8(cup, exc_idx, exc_val):
     """Rebuild the exact float32 coefficient plane from the clipped int8
-    upload and its exception list (combine._pack_i8).  The padding entries
-    all write flat index 0 with its own exact value, so duplicate writes
-    agree whatever their order."""
+    upload (or the int32 values of `unpack_i4`) and its exception list
+    (combine._pack_i8, _pack_i4).  The padding entries all write flat
+    index 0 with its own exact value, so duplicate writes agree whatever
+    their order."""
     dense = cup.to(torch.float32)
     dense.view(-1)[exc_idx.long()] = exc_val.to(torch.float32)
     return dense
 
 
+def unpack_i4(packed, shape):
+    """Inverse of combine._pack_i4 before the exception scatter: biased
+    nibbles, two a byte along the last axis, to int32 values in [-8, 7]
+    (counterpart of combine_jax.unpack_i4_jax, a torch op on either
+    device)."""
+    lo = (packed & 0x0F).to(torch.int32) - 8
+    hi = (packed >> 4).to(torch.int32) - 8
+    return torch.stack([lo, hi], dim=-1).reshape(shape)
+
+
 def reconstruct_dct8_full(cup, exc_idx, exc_val, aux, weights, consts22,
-                          h8: int, w8: int, to_u8: bool = True):
-    """Single-dispatch reconstruction of an all-DCT8 LF group from its int8
-    upload (counterpart of pallas_kernels.reconstruct_dct8_full)."""
-    return reconstruct_dct8_srgb(unpack_i8(cup, exc_idx, exc_val), aux,
-                                 weights, consts22, h8, w8, to_u8)
+                          h8: int, w8: int, to_u8: bool = True, kind: str = "i8"):
+    """Single-dispatch reconstruction of an all-DCT8 plane from its upload
+    form `kind`, clipped int8 ("i8") or 4-bit nibbles ("i4"), each with its
+    exception list (counterpart of pallas_kernels.reconstruct_dct8_full and
+    of the packed branches of parallel/batch.py's `_chunk_rgba`): the
+    unpack and the exception scatter as torch ops, then B1."""
+    if kind == "i4":
+        cup = unpack_i4(cup, (3, h8 * w8, 64))
+    elif kind != "i8":
+        raise ValueError(f"upload kind {kind!r}: use 'i8' or 'i4'")
+    dense = unpack_i8(cup, exc_idx, exc_val)
+    return reconstruct_dct8_srgb(dense, aux, weights, consts22, h8, w8, to_u8)

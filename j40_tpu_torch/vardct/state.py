@@ -921,7 +921,13 @@ class VarDCTState:
                     gmodular.channels[c].data = np.zeros(
                         (f.height, f.width), dtype=np.uint8
                     )
-            # port: keep_device_output is refused by the Decoder (ROADMAP A.5)
+            if getattr(self.fs, "keep_device_output", False):
+                # retain the on-device u8 planes for render_rgba8_device();
+                # the loop below still fetches each for the host canvas
+                self.device_planes = [
+                    (gg.top, gg.left, gg.height, gg.width, dev, ggh, ggw)
+                    for gg, (dev, ggh, ggw) in pending
+                ]
             for gg, (dev, ggh, ggw) in pending:
                 arr = dev[:, :ggh, :ggw].cpu().numpy()  # port: the fetch
                 dst_dtype = gmodular.channels[0].data.dtype

@@ -586,3 +586,74 @@ def test_hf_ctx_kernel_chain_cases(cuda, name):
     st = results[0][1]
     assert st[HK.CTX_DONE_ROW].all()
     assert bool(st[6, 0]) == (name in ("ctx_count_above_63", "ctx_overrun"))
+
+
+def _serving(n, seed=5):
+    rng = np.random.default_rng(seed)
+    return [encode_vardct((np.cumsum(rng.integers(-2, 3, size=(64, 64, 3)), axis=1)
+                           % 180 + 30).astype(np.uint8)) for _ in range(n)]
+
+
+def test_decode_batch_device_on_card_vs_cpu(cuda):
+    """decode_batch_device on 5 images in chunks of 2: one B1 launch a
+    chunk, a CUDA (B, H, W, 4) uint8 tensor, each image equal to its own
+    decode on the card and within 1 level of the device="cpu" batch."""
+    from j40_tpu_torch.decode import decode_file
+    from j40_tpu_torch.parallel.batch import decode_batch_device
+
+    blobs = _serving(5)
+    K.reset_launches()
+    out = decode_batch_device(blobs, workers=2, chunk=2, device=cuda)
+    torch.cuda.synchronize()
+    assert K.launches["reconstruct_dct8_srgb"] == 3, K.launches
+    assert out.is_cuda and out.shape == (5, 64, 64, 4) and out.dtype == torch.uint8
+    ref = decode_batch_device(blobs, workers=2, chunk=2, fetch=True, device="cpu")
+    got = out.cpu().numpy()
+    assert np.abs(got.astype(np.int64) - ref).max() <= 1
+    for blob, img in zip(blobs, got):
+        np.testing.assert_array_equal(img, decode_file(blob, device=cuda)[1])
+
+
+def test_decode_batch_device_hf_on_card_vs_cpu(cuda):
+    """decode_batch_device_hf on three images, each with its own prefix
+    code, in one multi-spec B4 call: equal to the pack path on the card,
+    within 1 level of the device="cpu" result (the same coefficients; B1
+    against its plain version)."""
+    from j40_tpu_torch.native.bindings import serialize_spec
+    from j40_tpu_torch.parallel.batch import decode_batch_device, decode_batch_device_hf
+
+    blobs = [encode_vardct(_photo(24, 600, s)) for s in (3, 4, 5)]
+    specs = set()
+    for b in blobs:
+        dec = Decoder(b, device="cpu", max_passes=0)
+        dec.decode_frame(_defer_finish=True)
+        specs.add(serialize_spec(dec._deferred[2].vardct.coeff_codespec[0]).tobytes())
+    assert len(specs) == 3
+    K.reset_launches()
+    st: dict = {}
+    out = decode_batch_device_hf(blobs, workers=2, chunk=2, stats_out=st, device=cuda)
+    torch.cuda.synchronize()
+    assert st["kernel_calls"] == 1 and K.launches["hf"] == 1, (st, K.launches)
+    assert K.launches["reconstruct_dct8_srgb"] == 2
+    pack = decode_batch_device(blobs, workers=2, chunk=2, device=cuda)
+    assert torch.equal(out, pack)
+    ref = decode_batch_device_hf(blobs, workers=2, chunk=2, fetch=True, device="cpu")
+    assert np.abs(out.cpu().numpy().astype(np.int64) - ref).max() <= 1
+
+
+@pytest.mark.parametrize("backend", ["torch", "device"])
+def test_render_rgba8_device_on_card(cuda, backend):
+    """keep_device_output=True: render_rgba8_device assembles the LF groups'
+    u8 planes on the card, a CUDA tensor equal to render_rgba8() and within
+    1 level of the device="cpu" decode."""
+    data = _mixed()
+    outs = []
+    for dev in (cuda, "cpu"):
+        dec = Decoder(data, backend=backend, device=dev, workers=4, keep_device_output=True)
+        dec.decode_frame()
+        got = dec.render_rgba8_device()
+        assert dec.stats["device_output"] == "planes"
+        assert got.device.type == torch.device(dev).type and got.dtype == torch.uint8
+        np.testing.assert_array_equal(got.cpu().numpy(), dec.render_rgba8())
+        outs.append(got.cpu().numpy().astype(np.int64))
+    assert np.abs(outs[0] - outs[1]).max() <= 1

@@ -156,7 +156,6 @@ def test_no_silent_cpu():
 
 @pytest.mark.parametrize("kw", [
     dict(backend="device"), dict(backend="jax"), dict(backend="auto"),
-    dict(keep_device_output=True),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_options_raise(kw):
     """What the port does not run yet raises; nothing falls back.  The
@@ -195,12 +194,39 @@ def test_apply_filters_decodes():
     assert dec.render_rgba8().shape == (16, 16, 4)
 
 
-def test_render_rgba8_device_raises():
+def test_keep_device_output_planes_route():
+    """keep_device_output keeps the LF groups' u8 planes on the device, and
+    render_rgba8_device assembles them into the host render's pixels."""
     from j40_tpu_torch.decode import Decoder
     from j40_tpu_torch.encode.vardct_enc import encode_vardct
-    from j40_tpu_torch.errors import Unsupported
+
+    dec = Decoder(encode_vardct(np.full((16, 16, 3), 90, np.uint8)), device="cpu",
+                  keep_device_output=True)
+    dec.decode_frame()
+    got = dec.render_rgba8_device()
+    assert dec.stats["device_output"] == "planes"
+    np.testing.assert_array_equal(got.numpy(), dec.render_rgba8())
+
+
+def test_render_rgba8_device_raises():
+    """render_rgba8_device raises before a frame is decoded."""
+    from j40_tpu_torch.decode import Decoder
+    from j40_tpu_torch.encode.vardct_enc import encode_vardct
+
+    dec = Decoder(encode_vardct(np.full((16, 16, 3), 90, np.uint8)), device="cpu")
+    with pytest.raises(AssertionError, match="decode a frame first"):
+        dec.render_rgba8_device()
+
+
+def test_render_rgba8_device_host_render_route():
+    """A frame decoded without keep_device_output kept no device planes:
+    render_rgba8_device uploads the host render and says so."""
+    from j40_tpu_torch.decode import Decoder
+    from j40_tpu_torch.encode.vardct_enc import encode_vardct
 
     dec = Decoder(encode_vardct(np.full((16, 16, 3), 90, np.uint8)), device="cpu")
     dec.decode_frame()
-    with pytest.raises(Unsupported, match="ROADMAP A.5"):
-        dec.render_rgba8_device()
+    got = dec.render_rgba8_device()
+    assert dec.stats["device_output"] == "host_render"
+    assert got.device.type == "cpu" and got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), dec.render_rgba8())
