@@ -61,6 +61,19 @@ which raises on failure (the script then exits non-zero):
    (host decode plus one upload of the RGBA); `render_rgba8_device` on
    configs 3 and 4; then B1 at the chunk shape and B4 on one multi-spec
    call of photo64 as kernel rows;
+5b. multi-device (j40_tpu_torch/parallel/sharded_*.py, phase_sharded) on
+   meshes that repeat the card, Mesh([cuda:0] * n): config 12F with the
+   filters on 8 shards (B2, B9's and B7's rows entries after each halo
+   exchange, B3, once a shard and step), equal within 1 level to 1 shard
+   and to the single-device filtered decode beyond the filters' reach of
+   an LF-group border; config 4 on 4 shards (group-aligned: the mixed
+   classes in the shards) and 8 (the overlay) and config 3 on 8, within 1
+   level of decode_file; decode_sharded_batch of 16 batch64 images on a
+   (2, 4) mesh; a 1024x1024 Squeeze+RCT lossless stream and bench.py's
+   shent_1024 (per-shard entropy, B6 once a shard), bit-exact with the
+   host plan; dryrun_multichip(8).  Mpix/s beside the single-device decode
+   of the same stream; B7's and B9's rows entries on a shard stripe of
+   config 12F and B6 on one shard's lanes as kernel rows;
 6. profile: one warm decode of configs 3, 4 and 12F under torch.profiler
    (device busy time and idle share) and cProfile (host time by function),
    one each of config 4 and hf_ctx_2048 under `backend="device"`, and one
@@ -188,6 +201,28 @@ def modular_stream(name: str) -> bytes:
     return encode_modular_advanced(img, options=AdvancedOptions(tree=tree, **kw))
 
 
+def lossless_sq_stream() -> bytes:
+    """The sharded lossless path's stream: bench.py's 1024x1024 image
+    (seed 12345) with Squeeze and the YCgCo RCT
+    (AdvancedOptions(squeeze=True, rct_type=6))."""
+    from j40_tpu_torch.encode.advanced import AdvancedOptions, encode_modular_advanced
+
+    return encode_modular_advanced(_test_image(1024, 1024),
+                                   options=AdvancedOptions(squeeze=True, rct_type=6))
+
+
+def shent_stream() -> bytes:
+    """bench.py's shent_1024 (bench.py:478-484): 1024x1024, global tree,
+    rANS, 128-px groups (64 sections of 49,152 symbols)."""
+    from j40_tpu_torch.encode.encoder import EncodeOptions, encode_modular
+
+    rng = np.random.default_rng(11)
+    img = (np.cumsum(rng.integers(-1, 2, size=(1024, 1024, 3)), axis=1)
+           % 180 + 30).astype(np.uint8)
+    return encode_modular(img, options=EncodeOptions(global_tree=True, use_prefix=False,
+                                                     group_size_shift=7))
+
+
 def flat_image(size: int = 1024, seed: int = 5) -> np.ndarray:
     """A screenshot-like page: a light background with solid panels, rows of
     text-like dark strokes, and bench.py's image as a photo in one quarter."""
@@ -217,6 +252,7 @@ def flat_stream(name: str) -> bytes:
 STREAMS = {
     "modular_e3": lambda: modular_stream("modular_e3"),
     "modular_e3gt": lambda: modular_stream("modular_e3gt"),
+    "lossless_sq": lossless_sq_stream,
     "config4": config4, "config12f": config12f,
     "modular_static_ctx": lambda: modular_stream("modular_static_ctx"),
     "hf_ans_2048": lambda: hf_stream(1), "hf_ctx_2048": lambda: hf_stream(5),
@@ -225,6 +261,7 @@ STREAMS = {
     "modular_global": lambda: modular_stream("modular_global"),
     "modular_flat": lambda: flat_stream("modular_flat"),
     "vardct_flat": lambda: flat_stream("vardct_flat"),
+    "shent_1024": shent_stream,
 }
 MODULAR = ("modular", "modular_global", "modular_e3", "modular_e3gt", "modular_static_ctx")
 
@@ -1242,14 +1279,6 @@ def phase_batch(streams: dict, dev) -> tuple[list[dict], dict]:
         torch.from_numpy(rgba).to(dev)
         torch.cuda.synchronize()
 
-    def median_s(fn) -> float:
-        ts = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            fn()
-            ts.append(time.perf_counter() - t0)
-        return statistics.median(ts)
-
     records, outs, serving = [], {}, {}
     for path, corpus, fn in BATCH_PATHS:
         blobs = streams[corpus]
@@ -1338,6 +1367,273 @@ def phase_batch(streams: dict, dev) -> tuple[list[dict], dict]:
         print(f"render_rgba8_device {name}: {tuple(got.shape)} uint8 on {got.device} from "
               f"{len(dec._device_planes)} LF groups' planes, equal to render_rgba8()")
     return records, serving
+
+
+def median_s(fn, reps: int = 3) -> float:
+    """Median wall seconds of `reps` calls of `fn`."""
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    return statistics.median(ts)
+
+
+#: shards of the multi-device paths (phase_sharded): a mesh that repeats
+#: the one card, as j40_tpu's tests repeat virtual CPU devices
+SHARDS = 8
+#: how far a difference at an LF-group border can reach into config 12F's
+#: filtered output: gaborish 1 pixel, then the EPF steps 3 + 2 + 1
+FILTER_REACH = 7
+
+
+def mesh_of(dev, n: int, shape=None, axes=("rows",)):
+    """A mesh of `n` entries of the one device `dev`."""
+    from j40_tpu_torch.parallel.mesh import Mesh
+
+    devs = np.array([dev] * n, dtype=object)
+    return Mesh(devs.reshape(shape) if shape else devs, axes)
+
+
+def lf_border_distance(h: int, w: int, group: int = 2048) -> np.ndarray:
+    """(h, w): each pixel's distance to the nearest LF-group border inside
+    the image (0 for the pixels on either side of it)."""
+    def dist(n):
+        i = np.arange(n)
+        d = np.full(n, n)
+        for b in range(group, n, group):
+            d = np.minimum(d, np.where(i < b, b - 1 - i, i - b))
+        return d
+    return np.minimum(dist(h)[:, None], dist(w)[None, :])
+
+
+def sharded_record(path: str, run, want: dict, reps: int, single) -> tuple[dict, object]:
+    """One multi-device path: the launch counters zeroed just before a
+    first (checked) call of `run` and read just after, which must equal
+    `want`; then Mpix/s over `reps` more calls (the first call's time when
+    reps is 0) beside `single`'s, the single-device decode of the same
+    stream(s) (median of 3).  Returns (record, the first call's output)."""
+    from j40_tpu_torch.ops import kernels as K
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(K.launches)
+    ran = {k: v for k, v in launches.items() if v}
+    assert ran == want, f"{path}: launches {ran}, want {want}"
+    secs = median_s(run, reps) if reps else first_s
+    return dict(path=path, launches=launches, first_call_s=first_s,
+                seconds=secs, timed_calls=reps or 1, single_s=median_s(single)), out
+
+
+def phase_sharded(streams: dict, dev) -> tuple[list[dict], list[dict], dict]:
+    """The multi-device paths (j40_tpu_torch/parallel/{sharded_decode,
+    sharded_lossless,sharded_entropy}.py) on meshes that repeat the card
+    (mesh_of), each checked: config 12F with the filters on 8 shards (equal
+    within 1 level to the same call on 1 shard, and to the single-device
+    filtered decode except near an LF-group border, where the single-device
+    plan filters each group apart), config 4 on 4 shards (group-aligned:
+    the mixed classes computed in the shards) and on 8 (the overlay),
+    config 3 on 8, decode_sharded_batch of 16 batch64 images on a (2, 4)
+    mesh, each within 1 level of the single-device decode; the Squeeze+RCT
+    lossless stream on 8 shards and shent_1024's per-shard entropy decode
+    (B6 once a shard), bit-exact with the host plan; dryrun_multichip(8).
+    The launch counters are zeroed just before each path's checked call and
+    read just after.  Kernel rows: B7's and B9's rows entries on an
+    interior shard of config 12F (the stripes captured from its checked
+    call), B6 on one shard's lanes of shent_1024.  Returns (path records,
+    kernel rows, the dry run's result)."""
+    import torch.nn.functional as Fn
+
+    from j40_tpu_torch import decode_file
+    from j40_tpu_torch.graft_entry import dryrun_multichip
+    from j40_tpu_torch.ops import filter_kernels as FK
+    from j40_tpu_torch.parallel import sharded_decode as SD
+    from j40_tpu_torch.parallel import sharded_entropy as SE
+    from j40_tpu_torch.parallel.sharded_lossless import decode_sharded_lossless
+
+    mesh8 = mesh_of(dev, SHARDS)
+    records, rows = [], []
+
+    def report(rec, cfg, size, mpix, diff, **extra):
+        rec.update(config=cfg, size=size, mpix_s=mpix / rec["seconds"],
+                   single_device_mpix_s=mpix / rec["single_s"], max_abs_diff=diff, **extra)
+        records.append(rec)
+        ran = {k: v for k, v in rec["launches"].items() if v}
+        print(f"sharded path {rec['path']} ({size}): {rec['mpix_s']:.2f} Mpix/s (median of "
+              f"{rec['timed_calls']}), single device {rec['single_device_mpix_s']:.2f} "
+              f"Mpix/s, first call {rec['first_call_s']:.2f} s, launches {ran}, max|diff| "
+              f"{diff}{''.join(f', {k} {v}' for k, v in extra.items())}")
+
+    # config 12F with the filters: B2, B9 rows, B7 rows (3 steps) and B3
+    # once a shard; the stripes of shard 1 are kept for the kernel rows
+    data = streams["config12f"]
+    _, single = _decode(data, "torch", filters=True)
+    captured = {}
+
+    def keep(fn, name):
+        def wrapper(*args):
+            captured.setdefault(name, []).append(args)
+            return fn(*args)
+        return wrapper
+
+    orig = FK.gaborish_rows, FK.epf_step_rows
+    FK.gaborish_rows, FK.epf_step_rows = keep(orig[0], "gab"), keep(orig[1], "epf")
+    try:
+        rec, out = sharded_record(
+            "config12f/sharded8+filters",
+            lambda: SD.decode_sharded(data, mesh=mesh8, apply_filters=True),
+            {"reconstruct_dct8": 8, "gaborish_rows": 8, "epf_step_rows": 24,
+             "xyb_to_srgb": 8}, 3, lambda: _decode(data, "torch", filters=True))
+        gab_args, epf_args = captured["gab"][1], captured["epf"][1]
+    finally:
+        FK.gaborish_rows, FK.epf_step_rows = orig
+    one = SD.decode_sharded(data, mesh=mesh_of(dev, 1), apply_filters=True)
+    one_diff = int(np.abs(out.astype(np.int16) - one).max())
+    assert one_diff <= 1, f"config12f: 8 shards against 1 shard: {one_diff}"
+    d = np.abs(out.astype(np.int16) - single[:, :, :3]).max(-1)
+    dist = lf_border_distance(*d.shape)
+    far = int(d[dist >= FILTER_REACH].max())
+    assert far <= 1, f"config12f: {far} levels from the single-device decode"
+    band = dict(within_3px=int((dist < 3).sum()), max_diff_within_3px=int(d[dist < 3].max()),
+                over_1_beyond_3px=int((d[dist >= 3] > 1).sum()),
+                max_diff_3_to_7px=int(d[(dist >= 3) & (dist < FILTER_REACH)].max()),
+                max_diff_beyond_7px=far)
+    wall, busy_ms, nrec = busy(lambda: SD.decode_sharded(data, mesh=mesh8, apply_filters=True))
+    rec["profile"] = dict(wall_ms=wall, device_busy_ms=busy_ms, records=nrec,
+                          device_idle_share=1 - busy_ms / wall)
+    rec["host_cumulative"] = host_profile(
+        lambda: SD.decode_sharded(data, mesh=mesh8, apply_filters=True))
+    report(rec, "config12f", "4096x3072", 4096 * 3072 / 1e6, one_diff,
+           one_shard_diff=one_diff, lf_border=band, profile=rec["profile"])
+    for ln in rec["host_cumulative"]:
+        print("  host", ln.strip()[:150])
+
+    # config 4 (filters off): 4 shards group-aligned, 8 shards the overlay;
+    # config 3 on 8 shards
+    for cfg, n, mode in (("config4", 4, "mixed_compute"), ("config4", SHARDS, "overlay"),
+                         ("config3", SHARDS, None)):
+        data = streams[cfg]
+        _, ref = _decode(data, "torch")
+        mesh = mesh_of(dev, n)
+        plan = SD.plan_frame(data, owners=n)
+        rec, out = sharded_record(
+            f"{cfg}/sharded{n}", lambda: SD._run_sharded([plan], mesh, ("rows",), False)[0],
+            {"reconstruct_dct8": n, "xyb_to_srgb": n}, 0, lambda: _decode(data, "torch"))
+        got_mode = None if not plan.classes else "overlay" if plan.overlay is not None             else "mixed_compute"
+        assert got_mode == mode, f"{cfg}/sharded{n}: {got_mode}, want {mode}"
+        diff = int(np.abs(out.astype(np.int16) - ref[:, :, :3]).max())
+        assert diff <= 1, f"{cfg}/sharded{n}: max|diff| {diff}"
+        rec["seconds"] = median_s(lambda: SD.decode_sharded(data, mesh=mesh,
+                                                             apply_filters=False))
+        rec["timed_calls"] = 3
+        w, h = (4096, 3072) if cfg == "config4" else (1024, 1024)
+        report(rec, cfg, f"{w}x{h}", w * h / 1e6, diff, mode=mode)
+
+    # decode_sharded_batch: 16 batch64 images on a (2, 4) ("img", "rows") mesh
+    blobs = streams["batch64"][:16]
+    refs = [decode_file(b, workers=4)[1] for b in blobs]
+    rec, outs = sharded_record(
+        "batch64/sharded_batch(2x4)",
+        lambda: SD.decode_sharded_batch(blobs, mesh_of(dev, 8, (2, 4), ("img", "rows")),
+                                        apply_filters=False),
+        {"reconstruct_dct8": 64, "xyb_to_srgb": 64}, 3,
+        lambda: [decode_file(b, workers=4) for b in blobs])
+    diff = max(int(np.abs(o.astype(np.int16) - r[:, :, :3]).max()) for o, r in zip(outs, refs))
+    assert diff <= 1, f"sharded batch: max|diff| {diff}"
+    report(rec, "batch64", f"16 x {BATCH_PX}x{BATCH_PX}", 16 * BATCH_PX ** 2 / 1e6, diff)
+
+    # lossless Squeeze + RCT on 8 shards: bit-exact with the host plan
+    data = streams["lossless_sq"]
+    _, ref = _decode(data, "numpy")
+    rec, out = sharded_record("lossless_sq/sharded8",
+                              lambda: decode_sharded_lossless(data, mesh=mesh8), {}, 0,
+                              lambda: _decode(data, "torch"))
+    assert np.array_equal(out, ref), "sharded lossless != host plan"
+    report(rec, "lossless_sq", "1024x1024", 1024 * 1024 / 1e6, 0)
+
+    # per-shard entropy decode of shent_1024: B6 once a shard
+    data = streams["shent_1024"]
+    rec, (planes, lanes, dec) = sharded_record(
+        "shent_1024/sharded8", lambda: SE.decode_modular_sections_sharded(data, mesh8),
+        {"tokens": SHARDS}, 0, lambda: _decode(data, "device"))
+    gm = dec._deferred[2].gmodular
+    for k, ln in enumerate(lanes):
+        for c, (gi, x0, y0, w, h) in enumerate(ln.picks):
+            assert np.array_equal(planes[k, c], gm.channels[gi].data[y0:y0 + h, x0:x0 + w]), \
+                f"shent_1024: section {k} channel {c} differs from the host"
+    report(rec, "shent_1024", "1024x1024", 1024 * 1024 / 1e6, 0, sections=len(lanes))
+
+    # the dry run: every leg of graft_entry.dryrun_multichip on 8 shards
+    from j40_tpu_torch.ops import kernels as K
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(SHARDS)
+    dry.update(seconds=time.perf_counter() - t0,
+               launches={k: v for k, v in K.launches.items() if v})
+    print(f"dryrun_multichip({SHARDS}): {dry}")
+
+    # kernel rows: B9's and B7's rows entries at config 12F's shard shape
+    # (B9 first: the plain EPF step's ~340 records a call make CUPTI lose
+    # records in the next sessions)
+    stripe, gab = gab_args
+    got = FK.gaborish_rows(*gab_args)
+    err = (got - FK.gaborish_rows_ref(*gab_args)).abs().max().item()
+    assert err <= XYB_ATOL, f"gaborish_rows disagrees: {err}"
+    taps = []
+    for w1, w2 in gab:
+        s_ = 1.0 + 4 * w1 + 4 * w2
+        taps.append([[w2 / s_, w1 / s_, w2 / s_], [w1 / s_, 1.0 / s_, w1 / s_],
+                     [w2 / s_, w1 / s_, w2 / s_]])
+    wt = torch.tensor(taps, dtype=torch.float32, device=dev)[:, None]
+
+    def conv():
+        return Fn.conv2d(Fn.pad(stripe[None], (1, 1, 0, 0), mode="replicate"), wt,
+                         groups=3)[0]
+
+    assert (conv() - got).abs().max().item() <= XYB_ATOL
+    b = bound((stripe.numel() + got.numel()) * 4 + 9 * 4, 17 * got.numel())
+    rows.append(dict(
+        name="gaborish_rows", counter="gaborish_rows", route="cuda",
+        source="j40_tpu_torch/csrc/filters.cu",
+        replaces="j40_tpu/ops/pallas_filters.py:161 (for sharded_filters._gaborish_rows)",
+        shape=f"{tuple(stripe.shape)} f32 stripe of shard 1 of config 12F -> "
+              f"{tuple(got.shape)}", max_abs_err=err,
+        **row_times(lambda: FK.gaborish_rows(*gab_args), lambda: FK.gaborish_rows_ref(*gab_args),
+                    conv),
+        bound_ms=b[0], bound_by=b[1],
+        library="F.conv2d depthwise 3x3 on a column-replicate pad (TF32 off)",
+    ))
+    stripe, rs8, _, kind = epf_args[:4]
+    got = FK.epf_step_rows(*epf_args)
+    err = (got - FK.epf_step_rows_ref(*epf_args)).abs().max().item()
+    assert err <= XYB_ATOL, f"epf_step_rows disagrees: {err}"
+    _, H, W = got.shape
+    b = bound((stripe.numel() + got.numel() + rs8.numel()) * 4,
+              epf_ops(active_pixels(rs8, H, W), [kind]))
+    rows.append(dict(
+        name="epf_step_rows", counter="epf_step_rows", route="cuda",
+        source="j40_tpu_torch/csrc/filters.cu",
+        replaces="j40_tpu/ops/pallas_filters.py:82 (via epf_step_pallas_rows, :274)",
+        shape=f"{tuple(stripe.shape)} f32 stripe of shard 1 of config 12F -> "
+              f"{tuple(got.shape)}, step kind {kind}", max_abs_err=err,
+        **row_times(lambda: FK.epf_step_rows(*epf_args),
+                    lambda: FK.epf_step_rows_ref(*epf_args)),
+        bound_ms=b[0], bound_by=b[1], library=None,
+    ))
+    _print_rows(rows)
+    # B6 on one shard's lanes of shent_1024 (8 sections of 49,152 symbols)
+    per = -(-len(lanes) // SHARDS)
+    tok = token_row("tokens_shard", "shent_1024", lanes[:per], dev)
+    tok["paths"] = ["shent_1024/sharded8"]
+    rows.append(tok)
+    paths = [r["path"] for r in records]
+    for r in rows[:2]:
+        r["paths"] = paths
+    return records, rows, dry
 
 
 def batch_kernel_rows(streams: dict, dev) -> list[dict]:
@@ -1685,18 +1981,23 @@ def main() -> int:
     batch_paths, serving = phase_batch(streams, dev)
     mains += batch_paths
     lap("batch paths")
+    # the multi-device paths on meshes that repeat the card
+    sharded, sharded_rows, dry = phase_sharded(streams, dev)
+    kernels += sharded_rows
+    lap("multi-device paths")
     for r in kernels:
         # an HF row counts the launches of the device-route paths of its
-        # mode, a token or batch row those of its own paths, any other row
-        # those of the single-stream paths (the batch rows count the batch
-        # paths' launches of the same kernel at their shape)
+        # mode, a token, batch or sharded row those of its own paths, any
+        # other row those of the single-stream paths (the batch and sharded
+        # rows count their paths' launches of the same kernel at their
+        # shape)
         paths = r.get("paths")
         if paths is None and "mode" in r:
             paths = [f"{k}/device" for k in hf_cfgs if hf_mode(plans[k]) == r["mode"]]
-        batch = {p for p, _, _ in BATCH_PATHS}
-        r["launches"] = sum(m["launches"][r.get("counter", r["name"])] for m in mains
+        other = {p for p, _, _ in BATCH_PATHS} | {m["path"] for m in sharded}
+        r["launches"] = sum(m["launches"][r.get("counter", r["name"])] for m in mains + sharded
                             if (m.get("path") in paths if paths is not None
-                                else m.get("path") not in batch))
+                                else m.get("path") not in other))
         assert r["launches"] > 0, f"{r['name']} never launched on the main path"
         assert r.get("timer"), f"{r['name']} names no timer"
     gathers = [gather_ab(k, streams[k]) for k in ("config3", "config4")]
@@ -1713,7 +2014,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build=build, kernels=kernels, flat_probes=flat, main_path=mains,
-        serving=serving, host_gather=gathers, timer_notes=TIMER_NOTES,
+        serving=serving, sharded=sharded, dryrun_multichip=dry, host_gather=gathers, timer_notes=TIMER_NOTES,
         epf_skipped_blocks=skipped, profiles=profiles,
         seconds=time.perf_counter() - t_start), indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

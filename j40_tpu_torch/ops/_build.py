@@ -102,11 +102,12 @@ def load_kernels():
         lib.j40tt_xyb_to_srgb.argtypes = [p, p, p, ll, i, i, p]
         lib.j40tt_xyb_to_srgb.restype = i
         # csrc/filters.cu; the EpfParams struct and the weights by pointer
-        for fn in ("j40tt_epf_step", "j40tt_epf_fused"):
+        for fn in ("j40tt_epf_step", "j40tt_epf_step_rows", "j40tt_epf_fused"):
             getattr(lib, fn).argtypes = [p, p, p, i, i, p, p]
             getattr(lib, fn).restype = i
-        lib.j40tt_gaborish.argtypes = [p, p, i, i, p, p]
-        lib.j40tt_gaborish.restype = i
+        for fn in ("j40tt_gaborish", "j40tt_gaborish_rows"):
+            getattr(lib, fn).argtypes = [p, p, i, i, p, p]
+            getattr(lib, fn).restype = i
         # csrc/hf.cu
         lib.j40tt_hf_walk.argtypes = [p, i, p, p, p, p, i, p, p, p, i, i, i, i, i, p, i, p, p]
         lib.j40tt_hf_walk.restype = i

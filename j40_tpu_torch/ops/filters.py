@@ -205,15 +205,22 @@ def _mirror_on(n: int, pad: int, device) -> torch.Tensor:
 def gaborish_torch(channels: torch.Tensor, weights) -> torch.Tensor:
     """Plain PyTorch gaborish (counterpart of gaborish_jax): (3, H, W)
     float32 in and out, weights normalized in double precision as there."""
+    p = torch.nn.functional.pad(channels[None], (1, 1, 1, 1), mode="replicate")[0]
+    return gaborish_taps(p, weights)
+
+
+def gaborish_taps(p: torch.Tensor, weights) -> torch.Tensor:
+    """The 3x3 gaborish sums of a (3, H + 2, W + 2) plane whose border
+    rows and columns are already in place (a pad, or a row shard's halo
+    rows): (3, H, W), rows top to bottom, each left to right."""
     norm = []
     for c in range(3):
         w1, w2 = weights[c]
         wsum = 1.0 + w1 * 4 + w2 * 4
         norm.append((1.0 / wsum, w1 / wsum, w2 / wsum))
     w0n, w1n, w2n = (torch.tensor([n[i] for n in norm], dtype=torch.float32,
-                                  device=channels.device).view(3, 1, 1)
+                                  device=p.device).view(3, 1, 1)
                      for i in range(3))
-    p = torch.nn.functional.pad(channels[None], (1, 1, 1, 1), mode="replicate")[0]
     return (
         p[:, :-2, :-2] * w2n + p[:, :-2, 1:-1] * w1n + p[:, :-2, 2:] * w2n
         + p[:, 1:-1, :-2] * w1n + p[:, 1:-1, 1:-1] * w0n + p[:, 1:-1, 2:] * w1n

@@ -30,8 +30,8 @@ from . import reconstruct as R
 #: ops/hf_kernels.py and the token wrapper of ops/token_kernels.py count
 #: here too)
 launches = {"reconstruct_dct8_srgb": 0, "reconstruct_dct8": 0, "xyb_to_srgb": 0,
-            "epf_step": 0, "epf_fused": 0, "gaborish": 0, "hf": 0, "hf_ctx": 0,
-            "tokens": 0}
+            "epf_step": 0, "epf_step_rows": 0, "epf_fused": 0, "gaborish": 0,
+            "gaborish_rows": 0, "hf": 0, "hf_ctx": 0, "tokens": 0}
 _launch_lock = threading.Lock()
 
 

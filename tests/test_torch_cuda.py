@@ -170,6 +170,55 @@ def test_filter_kernels_vs_plain(cuda, h, w):
     assert {k: K.launches[k] for k in want} == want
 
 
+@pytest.mark.parametrize("h,w", [(8, 2), (8, 3), (16, 61), (48, 64), (200, 72), (384, 4096)])
+def test_rows_filter_kernels_vs_plain(cuda, h, w):
+    """B7's and B9's rows entries (a row shard's stripe with its
+    neighbours' halo rows) against their plain versions, each step kind,
+    with one skipped block."""
+    rng = np.random.default_rng(h + w)
+    rows = torch.from_numpy(rng.normal(size=(3, h + 6, w)).astype(np.float32) * 50)
+    rs8 = np.abs(rng.normal(size=(-(-h // 8), -(-w // 8)))).astype(np.float32) * 0.05 + 0.02
+    rs8.flat[rs8.size // 2] = -1.0
+    rs8 = torch.from_numpy(rs8)
+    g, r = rows.to(cuda), rs8.to(cuda)
+    K.reset_launches()
+    gab = rows[:, 2:-2].contiguous()
+    got = FK.gaborish_rows(gab.to(cuda), GAB_W)
+    assert got.shape == (3, h, w)
+    assert (got.cpu() - FK.gaborish_rows_ref(gab, GAB_W)).abs().max().item() <= 2e-3
+    for kind, ss in ((0, 0.9), (1, 1.0), (2, 6.5)):
+        got = FK.epf_step_rows(g, r, ss, kind, CS, 2.78)
+        ref = FK.epf_step_rows_ref(rows, rs8, ss, kind, CS, 2.78)
+        assert got.shape == (3, h, w)
+        assert (got.cpu() - ref).abs().max().item() <= 2e-3
+    torch.cuda.synchronize()
+    assert {k: K.launches[k] for k in ("gaborish_rows", "epf_step_rows")} == {
+        "gaborish_rows": 1, "epf_step_rows": 3}
+
+
+def test_sharded_decode_on_card(cuda):
+    """decode_sharded on Mesh([cuda:0] * 8), filtered and ragged (8 row
+    shards exchanging halos on one card), against a 1-shard mesh and
+    against Mesh([cpu] * 8) (the plain versions); B2, B9 rows, B7 rows
+    and B3 once a shard (B7 rows once a shard and step)."""
+    from j40_tpu_torch.parallel.mesh import Mesh
+    from j40_tpu_torch.parallel.sharded_decode import decode_sharded
+
+    img = _noise(np.random.default_rng(11), 253, 192)
+    data = encode_vardct(img, VarDCTOptions(sharpness=5, custom_restoration=True,
+                                            epf_iters=3))
+    K.reset_launches()
+    got = decode_sharded(data, mesh=Mesh([cuda] * 8, ("rows",)), apply_filters=True)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in K.launches.items() if v} == {
+        "reconstruct_dct8": 8, "gaborish_rows": 8, "epf_step_rows": 24, "xyb_to_srgb": 8}
+    one = decode_sharded(data, mesh=Mesh([cuda], ("rows",)), apply_filters=True)
+    cpu = decode_sharded(data, mesh=Mesh(["cpu"] * 8, ("rows",)), apply_filters=True)
+    assert got.shape == (253, 192, 3)
+    assert np.abs(got.astype(np.int64) - one).max() <= 1
+    assert np.abs(got.astype(np.int64) - cpu).max() <= 1
+
+
 def _noise(rng, h, w):
     return (np.cumsum(np.cumsum(rng.integers(-2, 3, size=(h, w, 3)), 0), 1)
             % 200 + 20).astype(np.uint8)

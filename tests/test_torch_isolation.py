@@ -80,6 +80,19 @@ dec = Decoder(data, backend="device", device="cpu")
 dec.decode_frame()
 assert dec.stats["device_modular"]["lanes"] == 2
 assert dec.render_rgba8().shape == (16, 136, 4)
+# multi-device decode (parallel/mesh.py, parallel/sharded_*.py,
+# ops/sharded_filters.py, graft_entry.py) on a CPU mesh
+import j40_tpu_torch.graft_entry
+import j40_tpu_torch.ops.sharded_filters
+import j40_tpu_torch.parallel.sharded_entropy
+import j40_tpu_torch.parallel.sharded_lossless
+from j40_tpu_torch.parallel.mesh import Mesh
+from j40_tpu_torch.parallel.sharded_decode import decode_sharded
+mesh = Mesh(["cpu"] * 2, ("rows",))
+assert decode_sharded(encode_vardct_mixed(img), mesh=mesh).shape == (150, 260, 3)
+assert decode_sharded(data, mesh=mesh).shape == (16, 136, 3)
+fn, args = j40_tpu_torch.graft_entry.entry(device="cpu")
+assert fn(*args).shape == (3, 64, 64)
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("OK")
 """
