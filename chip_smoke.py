@@ -78,7 +78,15 @@ which raises on failure (the script then exits non-zero):
    (device busy time and idle share) and cProfile (host time by function),
    one each of config 4 and hf_ctx_2048 under `backend="device"`, and one
    each of the modular gradient stream and the e3 stream with a global tree
-   under `backend="device"`.
+   under `backend="device"`;
+7. cli: the command-line decoder, `python -m j40_tpu_torch`, one fresh
+   process a run on the streams above, written into build/cli/: config 3
+   with --time --stats --profile (the torch.profiler trace must hold
+   B1's records) and with --time alone, config 4 with --backend device,
+   config 12F with --filters, a small animation with --all-frames to
+   APNG, each PNG read back (no Pillow here) and equal to the in-process
+   decode, and --info on config 4; each run's wall time and the CLI's own
+   "decoded in" line beside phase 4's warm decode of the same stream.
 
 The streams are encoded first, in worker processes (one per core).
 
@@ -99,6 +107,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+# every profiler session here starts with settle(); SETTLE_KERNEL is its
+# sleep kernel, whose record no count takes
+from j40_tpu_torch.profile import SETTLE_KERNEL, settle
 
 # published H100 SXM peaks at its full 700 W (NVIDIA data sheet): HBM bytes
 # per second and fp32 operations per second outside the tensor cores
@@ -402,21 +414,6 @@ def row_times(ms, plain_ms, library_ms=None) -> dict:
 
 #: device_ms calls that CUPTI did not time (into build/chip_smoke.json)
 TIMER_NOTES: list[str] = []
-
-#: the kernel of torch.cuda._sleep, which settle() launches
-SETTLE_KERNEL = "spin_kernel"
-
-
-def settle() -> None:
-    """The start of every profiler session here.  After one session of
-    many records (a decode's profile), CUPTI lost records at the start of
-    every later session, and a short sleep kernel and 50 ms on the host
-    before the first timed call kept them all (tools/cupti_probe.py).  The
-    sleep kernel's own record (SETTLE_KERNEL) is never counted."""
-    torch.cuda._sleep(1_000_000)
-    torch.cuda.synchronize()
-    time.sleep(0.05)
-
 
 def queued_ms(fn, reps: int) -> float:
     """Device time per call of `fn`: CUDA events right around each of `reps`
@@ -1905,11 +1902,211 @@ def phase_profile(name: str, data: bytes, filters: bool = False,
     return out
 
 
+def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int = 4) -> np.ndarray:
+    """PNG scanlines (h rows of a filter byte and `stride` bytes) to the
+    (h, stride) uint8 samples, filter types 0-4 (PNG spec §9)."""
+    rows = raw.reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        ft, cur = int(rows[y, 0]), rows[y, 1:]
+        if ft == 0:
+            line = cur
+        elif ft == 1:  # Sub: a running sum along each channel
+            line = np.cumsum(cur.reshape(-1, bpp), axis=0, dtype=np.uint8).ravel()
+        elif ft == 2:  # Up
+            line = cur + prev
+        elif ft in (3, 4):  # Average, Paeth: a byte at a time
+            c, b = cur.tolist(), prev.tolist()
+            line_l = [0] * stride
+            for x in range(stride):
+                a = line_l[x - bpp] if x >= bpp else 0
+                if ft == 3:
+                    pred = (a + b[x]) >> 1
+                else:
+                    ul = b[x - bpp] if x >= bpp else 0
+                    p = a + b[x] - ul
+                    pa, pb, pc = abs(p - a), abs(p - b[x]), abs(p - ul)
+                    pred = a if pa <= pb and pa <= pc else (b[x] if pb <= pc else ul)
+                line_l[x] = (c[x] + pred) & 255
+            line = np.array(line_l, np.uint8)
+        else:
+            raise ValueError(f"PNG row {y}: filter type {ft}")
+        out[y] = prev = line
+    return out
+
+
+def read_png(path) -> tuple[list[np.ndarray], list[float], int | None]:
+    """An 8-bit RGBA PNG or APNG, non-interlaced, each APNG frame the whole
+    canvas (the CLI's own output; no Pillow on the card machine): (frames
+    as (h, w, 4) uint8, delays in ms, loop count), the delays and loops
+    empty and None for a still PNG."""
+    import struct
+    import zlib
+
+    buf = Path(path).read_bytes()
+    assert buf[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG"
+    pos, frames, delays, loops, z = 8, [], [], None, []
+    w = h = 0
+
+    def flush():
+        if z:
+            raw = np.frombuffer(zlib.decompress(b"".join(z)), np.uint8)
+            frames.append(_unfilter(raw, h, w * 4).reshape(h, w, 4))
+            z.clear()
+
+    while pos < len(buf):
+        n, kind = struct.unpack(">I4s", buf[pos:pos + 8])
+        body = buf[pos + 8:pos + 8 + n]
+        crc = struct.unpack(">I", buf[pos + 8 + n:pos + 12 + n])[0]
+        assert zlib.crc32(kind + body) == crc, f"{path}: bad CRC in {kind}"
+        pos += 12 + n
+        if kind == b"IHDR":
+            w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB", body)
+            assert (depth, ctype, interlace) == (8, 6, 0), f"{path}: not 8-bit RGBA"
+        elif kind == b"acTL":
+            loops = struct.unpack(">II", body)[1]
+        elif kind == b"fcTL":
+            flush()
+            _, fw, fh, x0, y0, num, den = struct.unpack(">IIIIIHH", body[:24])
+            assert (fw, fh, x0, y0) == (w, h, 0, 0), f"{path}: a partial frame"
+            delays.append(num * 1000.0 / (den or 100))
+        elif kind == b"IDAT":
+            z.append(body)
+        elif kind == b"fdAT":
+            z.append(body[4:])
+        elif kind == b"IEND":
+            flush()
+    return frames, delays, loops
+
+
+#: the animation of phase_cli: frames of a random walk, (durations in
+#: ticks), tps and loop count
+CLI_ANIM = dict(durations=(2, 3, 1), tps=(10, 1), num_loops=2, side=64)
+
+
+def cli_animation() -> tuple[bytes, list[int], int]:
+    """A small animation from the port's encode_animation: (stream, the
+    delays in ms the CLI writes, loops)."""
+    from j40_tpu_torch.encode.encoder import encode_animation
+
+    a = CLI_ANIM
+    frames = [(_test_image(a["side"], a["side"], seed=40 + i), d)
+              for i, d in enumerate(a["durations"])]
+    data = encode_animation(frames, tps=a["tps"], num_loops=a["num_loops"])
+    ms = 1000.0 * a["tps"][1] / a["tps"][0]
+    return data, [max(1, int(d * ms)) for d in a["durations"]], a["num_loops"]
+
+
+def cli_trace_records(trace_dir: Path) -> tuple[int, int]:
+    """The newest trace of `trace_dir`: (records of the port's kernels,
+    records of B1, dct8_kernel).  The port's kernels sit at the top of an
+    unnamed namespace of csrc/, as phase_profile counts them."""
+    newest = max(trace_dir.glob("*.pt.trace.json"), key=lambda p: p.stat().st_mtime)
+    events = json.loads(newest.read_text())["traceEvents"]
+    own = [e["name"] for e in events if e.get("cat") == "kernel"
+           and e.get("name", "").startswith(("(anonymous namespace)::",
+                                             "void (anonymous namespace)::"))]
+    return len(own), sum("dct8_kernel" in n for n in own)
+
+
+def phase_cli(streams: dict, mains: list[dict]) -> list[dict]:
+    """The command-line decoder, `python -m j40_tpu_torch`, each run a fresh
+    process on the card (CUDA context, library load and first launches
+    included), on the streams the earlier phases encoded, written into
+    build/cli/: config 3 on the default backend under --profile (the
+    trace must hold B1's records; a session that lost them is run again,
+    up to three in all) and again without it, config 4 with --backend
+    device, config 12F with --filters, an animation with --all-frames to
+    APNG, and --info.  Each
+    PNG must equal the in-process decode of the same stream on the card;
+    each run's time stands beside phase 4's warm decode of its stream."""
+    import re
+    import shutil
+
+    from j40_tpu_torch.decode import Decoder, decode_animation
+
+    root = Path(__file__).resolve().parent
+    out_dir = root / "build" / "cli"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    anim, anim_delays, anim_loops = cli_animation()
+    blobs = dict(streams, animation=anim)
+    warm = {m["path"]: m["mpix_s"] for m in mains if "path" in m}
+    torch.cuda.empty_cache()  # the CLI's process has its own context
+
+    def run(name, args, out):
+        src = out_dir / f"{name}.jxl"
+        src.write_bytes(blobs[name])
+        cmd = [sys.executable, "-m", "j40_tpu_torch", str(src), *([str(out)] if out else []),
+               *args]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        assert r.returncode == 0, f"{' '.join(cmd)}: rc {r.returncode}\n{r.stderr[-3000:]}"
+        m = re.search(r"^decoded in .*$", r.stderr, re.M)
+        return r, wall, m.group(0) if m else None
+
+    cases = [
+        ("config3", "torch", ["--time", "--stats"], "config3/torch"),
+        # the same run without the profiler: the cold time of the plain CLI
+        ("config3", "torch", ["--time"], "config3/torch"),
+        ("config4", "device", ["--backend", "device", "--time", "--stats"], "config4/device"),
+        ("config12f", "torch", ["--filters", "--time"], "config12f/torch+filters"),
+        ("animation", "torch", ["--all-frames", "--time"], None),
+        ("config4", "info", ["--info"], None),
+    ]
+    rows = []
+    for name, backend, args, warm_path in cases:
+        rec = dict(stream=name, backend=backend, args=args,
+                   warm_mpix_s=warm.get(warm_path), warm_path=warm_path)
+        if backend == "info":
+            r, wall, _ = run(name, args, None)
+            im = Decoder(blobs[name], backend="numpy").image
+            assert r.stdout.startswith("JPEG XL bare codestream") and \
+                f"image: {im.width}x{im.height}," in r.stdout, r.stdout
+            rec.update(wall_s=wall, decoded=None, kernel_records=None)
+        elif "--stats" in args and name == "config3":
+            trace_dir = out_dir / "trace3"
+            for sessions in range(1, 4):
+                out = out_dir / f"{name}.png"
+                r, wall, line = run(name, args + ["--profile", str(trace_dir)], out)
+                own, b1 = cli_trace_records(trace_dir)
+                if b1:
+                    break
+            assert b1, f"config3: no B1 record in {sessions} profiled CLI sessions"
+            rec.update(wall_s=wall, decoded=line, kernel_records=own, b1_records=b1,
+                       sessions=sessions)
+        else:
+            out = out_dir / (f"{name}.apng" if name == "animation" else f"{name}.png")
+            r, wall, line = run(name, args, out)
+            rec.update(wall_s=wall, decoded=line, kernel_records=None)
+        if name == "animation":
+            _, want = decode_animation(anim)
+            got, delays, loops = read_png(out)
+            assert len(got) == len(want) == len(CLI_ANIM["durations"]), (len(got), len(want))
+            for g, (_, wf) in zip(got, want):
+                assert np.array_equal(g, wf), "animation: an APNG frame != decode_animation"
+            assert delays == anim_delays and loops == anim_loops, (delays, loops)
+        elif backend != "info":
+            _, want = _decode(blobs[name], backend, "--filters" in args)
+            (got,), _, _ = read_png(out)
+            assert np.array_equal(got, want), f"{name}: the CLI's PNG != the in-process decode"
+        if rec["decoded"]:
+            rec["cli_mpix_s"] = float(re.search(r"\(([0-9.]+) Mpix/s\)", rec["decoded"])[1])
+        rows.append(rec)
+        warm_s = (f", phase 4 warm decode {rec['warm_mpix_s']:.2f} Mpix/s"
+                  if rec["warm_mpix_s"] else "")
+        print(f"cli {name} backend={backend} {' '.join(args)}: process wall "
+              f"{wall:.2f} s, CLI: {rec['decoded'] or 'no decode'}{warm_s}, "
+              f"trace kernel records {rec['kernel_records']}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    import j40_tpu_torch  # noqa: F401  (fails outside the checkout)
 
     t_start = time.perf_counter()
 
@@ -2010,12 +2207,15 @@ def main() -> int:
                                warm=False) for k in ("modular", "modular_e3gt")]
 
     lap("profiles")
+    # the command-line decoder, one process a run
+    cli = phase_cli(streams, mains)
+    lap("cli")
     out_dir = Path(__file__).resolve().parent / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build=build, kernels=kernels, flat_probes=flat, main_path=mains,
         serving=serving, sharded=sharded, dryrun_multichip=dry, host_gather=gathers, timer_notes=TIMER_NOTES,
-        epf_skipped_blocks=skipped, profiles=profiles,
+        epf_skipped_blocks=skipped, profiles=profiles, cli=cli,
         seconds=time.perf_counter() - t_start), indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -151,6 +151,21 @@ def test_every_kernel_source_is_built():
         assert (PORT / "ops" / wrappers) in set(PORT.rglob("*.py"))
 
 
+def test_package_data_ships_every_kernel_source():
+    """An installed package builds its kernels from the package data, so the
+    globs for csrc/ match every source and every header the build reads."""
+    import fnmatch
+    import tomllib
+
+    from j40_tpu_torch.ops import _build
+
+    conf = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    globs = conf["tool"]["setuptools"]["package-data"]["j40_tpu_torch.csrc"]
+    missing = [p.name for p in _build.SOURCES + _build.HEADERS
+               if not any(fnmatch.fnmatch(p.name, g) for g in globs)]
+    assert not missing, f"pyproject.toml does not ship {missing}"
+
+
 @pytest.mark.parametrize("rel", VERBATIM)
 def test_copies_unchanged(rel):
     assert (PORT / rel).read_bytes() == (ROOT / "j40_tpu" / rel).read_bytes()
