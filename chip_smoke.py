@@ -20,7 +20,12 @@ which raises on failure (the script then exits non-zero):
    coefficient planes.  The token kernel (B6) runs on the full-size lanes
    of the modular streams below in each table mode (per-lane rows, one
    shared row, per-token clusters, and the e3 tree's prefix lanes): capped
-   against its plain version, uncapped to every section's end.  Each
+   against its plain version, uncapped to every section's end.  The
+   wavefront kernels (W1: gradient and per-pixel codes; W2: WP alone and
+   per-pixel codes 0-12; W3: the MA-tree walk) run on the first plane
+   batch of the modular streams'
+   lanes (16 lanes of 256x256), each equal to its plain version, planes
+   and overflow flags, with its diagonal count and time a diagonal.  Each
    entropy row names its design (sync: the self-synchronising decode of
    prefix lanes; serial: one thread per lane; lookahead: B5's decoding
    thread, which forms the next symbol's context for both outcomes of a
@@ -44,10 +49,12 @@ which raises on failure (the script then exits non-zero):
    probe streams, each equal to `backend="torch"` and within 1 level of
    the host plan, with every eligible section on the HF kernels; then the
    lossless Modular streams (BASELINE configs 1 and 2, their global-tree
-   twins, a static-tree stream; 1024x1024, made from bench.py's seeds)
-   through `decode_file(data, backend="device", workers=4)`, each equal bit
-   for bit to the host plan, with every section the port's own lane plan
-   takes on the token kernel and the torch-op wavefronts.  The kernel
+   twins, a static-tree stream, a WP stream, a static tree with WP among
+   its leaves; 1024x1024, made from bench.py's seeds) through
+   `decode_file(data, backend="device", workers=4)`, each equal bit for
+   bit to the host plan, with every section the port's own lane plan takes
+   on the token kernel, every (class, slot) plane batch on a wavefront
+   kernel, and the stream's own wavefront kernel launched.  The kernel
    launch counters, zeroed just before each path and read just after, show
    which kernels each went through;
 5. batch serving (j40_tpu_torch/parallel/batch.py) on two corpora of 64
@@ -70,8 +77,8 @@ which raises on failure (the script then exits non-zero):
    classes in the shards) and 8 (the overlay) and config 3 on 8, within 1
    level of decode_file; decode_sharded_batch of 16 batch64 images on a
    (2, 4) mesh; a 1024x1024 Squeeze+RCT lossless stream and bench.py's
-   shent_1024 (per-shard entropy, B6 once a shard), bit-exact with the
-   host plan; dryrun_multichip(8).  Mpix/s beside the single-device decode
+   shent_1024 (per-shard entropy, B6 and W1 once a shard), bit-exact with
+   the host plan; dryrun_multichip(8).  Mpix/s beside the single-device decode
    of the same stream; B7's and B9's rows entries on a shard stripe of
    config 12F and B6 on one shard's lanes as kernel rows;
 6. profile: one warm decode of configs 3, 4 and 12F under torch.profiler
@@ -191,7 +198,12 @@ def modular_stream(name: str) -> bytes:
     modular_global      the same with one global tree and code spec
     modular_e3          BASELINE config 2 (bench.py:854-859): local e3 trees
     modular_e3gt        bench.py:1011-1015 exactly: the e3 tree, global, rANS
-    modular_static_ctx  the 9-node static tree, rANS, complex cluster map"""
+    modular_static_ctx  the 9-node static tree, rANS, complex cluster map
+    modular_wp          the weighted predictor alone (a single-leaf tree,
+                        predictor 6): the WP-only mode of kernel W2
+    modular_static_wp   the static tree of tests/test_device_modular.py:
+                        316-324, WP among its leaves (6, 4, 7, 12): W2's
+                        per-pixel codes"""
     from j40_tpu_torch.encode.advanced import AdvancedOptions, encode_modular_advanced
     from j40_tpu_torch.encode.encoder import EncodeOptions, encode_modular
     from j40_tpu_torch.encode.modular_enc import branch, leaf
@@ -209,6 +221,9 @@ def modular_stream(name: str) -> bytes:
         "modular_e3": (e3, {}),
         "modular_e3gt": (e3, dict(use_prefix=False, global_tree=True)),
         "modular_static_ctx": (static, dict(use_prefix=False, complex_cluster_map=True)),
+        "modular_wp": ([leaf(6)], {}),
+        "modular_static_wp": ([branch(0, 0, 1, 2), branch(3, 70, 3, 4), branch(2, 50, 5, 6),
+                               leaf(6), leaf(4), leaf(7), leaf(12)], {}),
     }[name]
     return encode_modular_advanced(img, options=AdvancedOptions(tree=tree, **kw))
 
@@ -267,6 +282,8 @@ STREAMS = {
     "lossless_sq": lossless_sq_stream,
     "config4": config4, "config12f": config12f,
     "modular_static_ctx": lambda: modular_stream("modular_static_ctx"),
+    "modular_wp": lambda: modular_stream("modular_wp"),
+    "modular_static_wp": lambda: modular_stream("modular_static_wp"),
     "hf_ans_2048": lambda: hf_stream(1), "hf_ctx_2048": lambda: hf_stream(5),
     "config3": config3,
     "modular": lambda: modular_stream("modular"),
@@ -275,7 +292,12 @@ STREAMS = {
     "vardct_flat": lambda: flat_stream("vardct_flat"),
     "shent_1024": shent_stream,
 }
-MODULAR = ("modular", "modular_global", "modular_e3", "modular_e3gt", "modular_static_ctx")
+MODULAR = ("modular", "modular_global", "modular_e3", "modular_e3gt", "modular_static_ctx",
+           "modular_wp", "modular_static_wp")
+#: the wavefront kernels' launch counters (ops/wavefront_kernels.py), one
+#: a kernel instance
+WAVEFRONT_COUNTERS = ("wavefront", "wavefront_mixed", "wavefront_wp", "wavefront_wp_codes",
+                      "wavefront_tree")
 
 
 def make_stream(name: str) -> bytes:
@@ -1113,6 +1135,151 @@ def token_row(name: str, cfg: str, batch: list, dev) -> dict:
     return row
 
 
+#: the wavefront kernels' rows: (row name, stream, counter, the JAX program
+#: it replaces (a lax.scan inside jax.jit: no pl.pallas_call), the paths
+#: whose launches it counts)
+WAVEFRONT_ROWS = (
+    ("wavefront_grad", "modular", "wavefront", "j40_tpu/ops/device_entropy.py:491",
+     ("modular/device", "modular_global/device", "shent_1024/sharded8")),
+    ("wavefront_mixed", "modular_static_ctx", "wavefront_mixed",
+     "j40_tpu/ops/device_entropy.py:548", ("modular_static_ctx/device",)),
+    ("wavefront_wp", "modular_wp", "wavefront_wp", "j40_tpu/ops/device_entropy.py:738",
+     ("modular_wp/device",)),
+    ("wavefront_wp_codes", "modular_static_wp", "wavefront_wp_codes",
+     "j40_tpu/ops/device_entropy.py:738", ("modular_static_wp/device",)),
+    ("wavefront_tree", "modular_e3gt", "wavefront_tree",
+     "j40_tpu/ops/device_entropy.py:956", ("modular_e3/device", "modular_e3gt/device")),
+)
+# least 32-bit integer operations a pixel: W1 the edge chain and the
+# clamped gradient or the code select (12); W2 the four sub-predictions
+# (30), the error sums and weights (60), the blend and its clamp (25), the
+# error update (25); W3 adds 8 a level of the tree walk and its leaf (10)
+W1_OPS, W2_OPS, TREE_LEVEL_OPS, TREE_LEAF_OPS = 12, 140, 8, 10
+
+
+def wavefront_inputs(plan: dict, dev) -> dict:
+    """The first (class, slot) plane batch of a stream's lanes as
+    ops/device_modular.py hands it to a wavefront: the token kernel's
+    values of every lane's first slot (the lanes share one class here:
+    256x256 groups, one leaf or one tree), unpacked, with the leaf's or the
+    static tree's per-pixel multiplier and offset applied; a static tree's
+    per-pixel codes, a neighbour-property tree and the lanes' stream
+    indices."""
+    from j40_tpu_torch.ops import device_modular as DM
+    from j40_tpu_torch.ops import token_kernels as TKN
+    from j40_tpu_torch.ops.device_entropy import unpack_signed_dev
+    from j40_tpu_torch.ops.hf_kernels import to_device
+
+    (batch,) = plan["batches"]
+    vals = TKN.launch_tokens(to_device(DM.pack_lanes(batch), dev))[0]
+    first = batch[0]
+    w, h = first.picks[0][3:]
+    assert all(ln.picks[0][3:] == (w, h) for ln in batch)
+    res = unpack_signed_dev(vals[:, : w * h]).reshape(len(batch), h, w)
+    out = dict(h=h, w=w, lanes=len(batch), wp=first.wp)
+    if first.ntree is not None:
+        assert all(ln.ntree[0] == first.ntree[0] for ln in batch)
+        out.update(tree=first.ntree[0], sidx=torch.tensor(
+            [ln.ntree[1] for ln in batch], dtype=torch.int32, device=dev))
+    elif first.ctx is not None:
+        def plane(k):
+            return torch.from_numpy(np.stack([ln.ctx[0][k] for ln in batch])).to(dev)
+
+        res = res * plane("mult") + plane("offset")
+        out["codes"] = plane("pred")
+    else:
+        res = res * first.leaf.multiplier + first.leaf.offset
+        out["predictor"] = first.leaf.predictor
+    out["res"] = res.contiguous()
+    return out
+
+
+def phase_wavefront_kernels(plans: dict, dev) -> list[dict]:
+    """The wavefront kernels W1-W3 (csrc/wavefront.cu) on the main path's
+    planes, each against its plain version (the torch-op loop of
+    ops/device_entropy.py) on the card from the same inputs: planes and
+    overflow flags equal.  `ms` is the kernel's device time; the plain
+    version, ~10^4-10^5 small launches a call, is timed once between CUDA
+    events.  The diagonal count D and the time a diagonal, which is what
+    bounds a serial chain, beside the byte bound."""
+    from j40_tpu_torch.modular.wp import WPParams
+    from j40_tpu_torch.ops import device_entropy as DE
+    from j40_tpu_torch.ops import wavefront_kernels as WK
+
+    rows = []
+    for name, cfg, counter, replaces, paths in WAVEFRONT_ROWS:
+        inp = wavefront_inputs(plans[cfg], dev)
+        res, h, w, L = inp["res"], inp["h"], inp["w"], inp["lanes"]
+        wp = inp["wp"] or WPParams()
+        codes, tree, sidx = inp.get("codes"), inp.get("tree"), inp.get("sidx")
+        nbytes = res.numel() * 4 * 2 + (codes.numel() * 4 if codes is not None else 0)
+        if counter in ("wavefront", "wavefront_mixed"):
+            assert (codes is None) == (counter == "wavefront")
+            assert inp.get("predictor", 5) == 5
+
+            def run():
+                return WK.plain_wavefront(res, codes, h, w)
+
+            def plain():
+                return DE._plain_wavefront(res, codes, h, w)
+
+            D, ops = h + w - 1, W1_OPS * res.numel()
+            mode = "mixed codes" if codes is not None else "gradient"
+        elif counter in ("wavefront_wp", "wavefront_wp_codes"):
+            assert (codes is None) == (counter == "wavefront_wp")
+            assert inp.get("predictor", 6) == 6
+
+            def run():
+                return WK.wp_wavefront(res, codes, h, w, wp)
+
+            def plain():
+                return DE._wp_reconstruct(res, codes, h, w, wp, codes is not None)
+
+            D, ops = 2 * h + w - 2, W2_OPS * res.numel()
+            nbytes += L
+            mode = "WP" if codes is None else "per-pixel codes"
+        else:
+            depth = WK._tree_meta(tuple(tree))[1]
+
+            def run():
+                return WK.tree_wavefront(res, tree, 0, sidx, h, w, wp)
+
+            def plain():
+                return DE._tree_wp_reconstruct(res, h, w, wp, tree, 0, sidx)
+
+            D = 2 * h + w - 2
+            ops = (W2_OPS + TREE_LEVEL_OPS * depth + TREE_LEAF_OPS) * res.numel()
+            nbytes += L + len(tree) * 56 + L * 4
+            mode = f"tree of {len(tree)} nodes, depth {depth}"
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), f"{name}: the kernel differs from the plain version"
+        flagged = int(got[1].sum()) if len(got) > 1 else 0
+        ms = device_ms(run)
+        timer = "CUPTI"
+        if ms is None:
+            ms, timer = queued_ms(run, REPS), "queued CUDA events"
+        b = bound(nbytes, ops)
+        row = dict(
+            name=name, route="cuda", source="j40_tpu_torch/csrc/wavefront.cu",
+            replaces=replaces, counter=counter, paths=list(paths), mode=mode,
+            shape=f"{L} lanes of {h}x{w} int32 ({cfg}, slot 0, {mode})",
+            max_abs_err=0, flagged_lanes=flagged, ms=ms, timer=timer,
+            ms_events=event_ms(run, 20), plain_ms=event_ms(plain),
+            plain_timer="CUDA events", library_ms=None, library=None,
+            bound_ms=b[0], bound_by=b[1], diagonals=D, ns_per_diagonal=ms * 1e6 / D)
+        rows.append(row)
+        print(f"kernel {name} [{row['shape']}]: {ms:.4f} ms ({timer}; events "
+              f"{row['ms_events']:.4f} ms), {D} diagonals, {row['ns_per_diagonal']:.1f} ns "
+              f"a diagonal, plain {row['plain_ms']:.1f} ms (one call, CUDA events), bound "
+              f"{b[0]:.4f} ms ({b[1]}), flagged lanes {flagged}; planes and flags equal "
+              f"to the plain version")
+    return rows
+
+
 def phase_flat_probes(streams: dict, dev) -> list[dict]:
     """The sync design on flat, screenshot-like content (FLAT_STREAMS), whose
     long runs of the all-zero codeword may fall into step only at the run's
@@ -1147,8 +1314,9 @@ def phase_modular_path(name: str, data: bytes, plan: dict) -> dict:
     """A modular stream through `decode_file(data, backend="device",
     workers=4)`: RGBA equal bit for bit to the host plan, every eligible
     section of the port's own plan on the device lanes, the token kernel
-    launched (counters zeroed just before the decode, read just after);
-    Mpix/s beside the host plan's."""
+    launched once a lane batch and the wavefront kernels once a (class,
+    slot) plane batch (counters zeroed just before the decode, read just
+    after); Mpix/s beside the host plan's."""
     from j40_tpu_torch.ops import kernels as K
 
     _, ref = _decode(data, "numpy")
@@ -1162,6 +1330,16 @@ def phase_modular_path(name: str, data: bytes, plan: dict) -> dict:
     taken = sum(dm.get(k, 0) for k in ("lanes", "ctx_lanes", "ntree_lanes"))
     assert taken == len(plan["lanes"]) > 0, f"{name}: {dm} against {len(plan['lanes'])}"
     assert launches["tokens"] == len(plan["batches"]), f"{name}: launches {launches}"
+    # one wavefront launch a (class, slot) plane batch that the route sends
+    # to a wavefront (`wavefronts`, counted where ops/device_modular.py
+    # chooses it), here every slot: each predicts with 5, 6, per-pixel
+    # codes or a tree; and the stream's own wavefront kernel launched
+    waves = sum(launches[k] for k in WAVEFRONT_COUNTERS)
+    assert waves == dm["wavefronts"] == dm["reconstructions"] > 0, \
+        f"{name}: launches {launches}, route {dm}"
+    for row, _, counter, _, paths in WAVEFRONT_ROWS:
+        if f"{name}/device" in paths:
+            assert launches[counter] > 0, f"{name}: {row} not launched: {launches}"
 
     def mpix(backend, reps):
         ts = []
@@ -1171,8 +1349,7 @@ def phase_modular_path(name: str, data: bytes, plan: dict) -> dict:
             ts.append(time.perf_counter() - t0)
         return rgba.shape[0] * rgba.shape[1] / 1e6 / statistics.median(ts)
 
-    # the WP tree wavefront's decodes take many seconds (hundreds of small
-    # launches per diagonal): one timed decode of those, three of the others
+    # a decode slower than 5 s is timed once
     reps = 3 if first_s < 5 else 1
     out = dict(config=name, backend="device", path=f"{name}/device",
                size=f"{rgba.shape[1]}x{rgba.shape[0]}", stream_bytes=len(data),
@@ -1436,7 +1613,8 @@ def phase_sharded(streams: dict, dev) -> tuple[list[dict], list[dict], dict]:
     config 3 on 8, decode_sharded_batch of 16 batch64 images on a (2, 4)
     mesh, each within 1 level of the single-device decode; the Squeeze+RCT
     lossless stream on 8 shards and shent_1024's per-shard entropy decode
-    (B6 once a shard), bit-exact with the host plan; dryrun_multichip(8).
+    (B6 and W1 once a shard), bit-exact with the host plan;
+    dryrun_multichip(8).
     The launch counters are zeroed just before each path's checked call and
     read just after.  Kernel rows: B7's and B9's rows entries on an
     interior shard of config 12F (the stripes captured from its checked
@@ -1551,11 +1729,11 @@ def phase_sharded(streams: dict, dev) -> tuple[list[dict], list[dict], dict]:
     assert np.array_equal(out, ref), "sharded lossless != host plan"
     report(rec, "lossless_sq", "1024x1024", 1024 * 1024 / 1e6, 0)
 
-    # per-shard entropy decode of shent_1024: B6 once a shard
+    # per-shard entropy decode of shent_1024: B6 and W1 once a shard
     data = streams["shent_1024"]
     rec, (planes, lanes, dec) = sharded_record(
         "shent_1024/sharded8", lambda: SE.decode_modular_sections_sharded(data, mesh8),
-        {"tokens": SHARDS}, 0, lambda: _decode(data, "device"))
+        {"tokens": SHARDS, "wavefront": SHARDS}, 0, lambda: _decode(data, "device"))
     gm = dec._deferred[2].gmodular
     for k, ln in enumerate(lanes):
         for c, (gi, x0, y0, w, h) in enumerate(ln.picks):
@@ -2148,7 +2326,7 @@ def main() -> int:
     lap("encode and plans")
     kernels = (phase_kernels(inp3[0], big4, dev) + phase_filter_kernels(big12, dev)
                + phase_hf_kernels(plans, dev) + phase_token_kernels(mplans, dev)
-               + batch_kernel_rows(streams, dev))
+               + phase_wavefront_kernels(mplans, dev) + batch_kernel_rows(streams, dev))
     flat = phase_flat_probes(streams, dev)
     lap("kernels")
 
@@ -2170,7 +2348,7 @@ def main() -> int:
                    "hf_ctx_2048": {"hf_ctx", "reconstruct_dct8_srgb"}}
     mains += [phase_main_path(k, streams[k], device_want[k], backend="device",
                               lanes=len(plans[k]["lanes"])) for k in hf_cfgs]
-    # the modular device lanes: the token kernel, then the torch-op wavefronts
+    # the modular device lanes: the token kernel, then the wavefront kernels
     lap("VarDCT main paths")
     mains += [phase_modular_path(k, streams[k], mplans[k]) for k in MODULAR]
     lap("modular main paths")
@@ -2202,9 +2380,10 @@ def main() -> int:
     profiles.append(phase_profile("config12f", streams["config12f"], filters=True))
     profiles += [phase_profile(k, streams[k], backend="device")
                  for k in ("config4", "hf_ctx_2048")]
-    # device records only: the wavefronts launch many small kernels
-    profiles += [phase_profile(k, streams[k], backend="device", cpu_events=False,
-                               warm=False) for k in ("modular", "modular_e3gt")]
+    # the modular device lanes: a token launch, then a wavefront launch a
+    # (class, slot) plane batch
+    profiles += [phase_profile(k, streams[k], backend="device", warm=False)
+                 for k in ("modular", "modular_e3gt")]
 
     lap("profiles")
     # the command-line decoder, one process a run
@@ -2226,7 +2405,7 @@ def main() -> int:
     # statistics, their rates and the time between CUDA events around the
     # call; the batch rows the paths whose launches they count
     extra = ("timer", "plain_timer", "ns_per_symbol", "symbols_per_s", "design", "sync",
-             "ms_events", "paths")
+             "ms_events", "paths", "diagonals", "ns_per_diagonal")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in kernels]}))
     print(card["nvidia_smi"])

@@ -20,7 +20,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = [_PKG / "csrc" / n
-           for n in ("reconstruct.cu", "filters.cu", "hf.cu", "tokens.cu")]
+           for n in ("reconstruct.cu", "filters.cu", "hf.cu", "tokens.cu", "wavefront.cu")]
 #: headers the sources include (hashed with them)
 HEADERS = [_PKG / "csrc" / n for n in ("entropy.cuh", "prefix_sync.cuh")]
 BUILD_DIR = _PKG.parent / "build" / "j40_tpu_torch"
@@ -124,6 +124,11 @@ def load_kernels():
         lib.j40tt_tokens_scratch.restype = ll
         lib.j40tt_sync_stats_at.argtypes = [i, i]
         lib.j40tt_sync_stats_at.restype = ll
+        # csrc/wavefront.cu
+        lib.j40tt_wavefront.argtypes = [p, p, p, i, i, i, p]
+        lib.j40tt_wavefront.restype = i
+        lib.j40tt_wavefront_wp.argtypes = [p, p, p, i, i, i, p, p, p, p, i, i, i, p]
+        lib.j40tt_wavefront_wp.restype = i
         lib.j40tt_error_string.argtypes = [i]
         lib.j40tt_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -16,7 +16,11 @@ j40_tpu/ops/pallas_entropy.py beside it.
   reconstructions of the modular predictors — `gradient_reconstruct`,
   `mixed_reconstruct`, `reconstruct_channel`, the self-correcting (WP)
   wavefront `wp_reconstruct(_ovf)` and the in-wavefront MA-tree walk
-  `tree_wp_reconstruct`.
+  `tree_wp_reconstruct`.  The wavefronts dispatch through
+  ops/wavefront_kernels.py: CUDA tensors go to the kernels W1-W3
+  (csrc/wavefront.cu), CPU tensors to the torch-op loops here
+  (`_plain_wavefront`, `_wp_reconstruct`, `_tree_wp_reconstruct`), their
+  plain versions.
 
 Bit-exactness: everything is integer and matches j40_tpu (and the host
 oracle) bit for bit.  port: `_mul_shr24` is a plain int64 product; the
@@ -433,11 +437,14 @@ def _plain_wavefront(res, pcode, height: int, width: int):
 
 def gradient_reconstruct(res, height: int, width: int):
     """Reconstruct (L, H, W) planes for the gradient predictor (#5) via an
-    anti-diagonal wavefront.
+    anti-diagonal wavefront: kernel W1 on CUDA tensors, `_plain_wavefront`
+    on CPU ones (ops/wavefront_kernels.py).
 
     Matches modular.decode's edge-substitution chain exactly: w_ falls back
     to N at x=0 (to 0 at the origin), n_ falls back to w_, nw to w_."""
-    return _plain_wavefront(res, None, height, width)
+    from .wavefront_kernels import plain_wavefront
+
+    return plain_wavefront(res, None, height, width)
 
 
 def mixed_reconstruct(res, pcode, height: int, width: int):
@@ -445,8 +452,10 @@ def mixed_reconstruct(res, pcode, height: int, width: int):
     (0=zero, 1=W, 2=N, 5=clamped gradient) via the same anti-diagonal
     wavefront as `gradient_reconstruct` (host analog decode.py::_predict).
     Predictor 1 reads w_ (which falls back to N at x=0, 0 at the origin)
-    and predictor 2 reads n_ (fallback w_)."""
-    return _plain_wavefront(res, pcode, height, width)
+    and predictor 2 reads n_ (fallback w_).  Kernel W1 on CUDA tensors."""
+    from .wavefront_kernels import plain_wavefront
+
+    return plain_wavefront(res, pcode, height, width)
 
 
 def reconstruct_channel(res, predictor: int, height: int, width: int):
@@ -638,15 +647,17 @@ def wp_reconstruct(res, pcode, height: int, width: int, params):
     H, W) int32 per-pixel predictor plane (None = all WP): under this skew
     every predictor except 13 is orderable, so multi-leaf WP trees run with
     per-pixel selects.  `params` is the WPParams of the modular
-    sub-header."""
-    return _wp_reconstruct(res, pcode, height, width, params, pcode is not None)[0]
+    sub-header.  Kernel W2 on CUDA tensors (ops/wavefront_kernels.py)."""
+    return wp_reconstruct_ovf(res, pcode, height, width, params)[0]
 
 
 def wp_reconstruct_ovf(res, pcode, height: int, width: int, params):
     """Like wp_reconstruct but also returns the per-lane overflow-risk
     flag (True = this lane's error state left the exactness envelope;
     re-decode it on the host)."""
-    return _wp_reconstruct(res, pcode, height, width, params, pcode is not None)
+    from .wavefront_kernels import wp_wavefront
+
+    return wp_wavefront(res, pcode, height, width, params)
 
 
 def _tree_depth(tree_key) -> int:
@@ -715,5 +726,9 @@ def _tree_wp_reconstruct(res, height: int, width: int, params, tree_key,
 
 def tree_wp_reconstruct(res, tree_key, cidx: int, sidx, height: int,
                         width: int, params):
-    """Public wrapper of _tree_wp_reconstruct (see its docstring)."""
-    return _tree_wp_reconstruct(res, height, width, params, tree_key, cidx, sidx)
+    """Public wrapper of _tree_wp_reconstruct (see its docstring): kernel W3
+    on CUDA tensors, the plain version on CPU ones
+    (ops/wavefront_kernels.py)."""
+    from .wavefront_kernels import tree_wavefront
+
+    return tree_wavefront(res, tree_key, cidx, sidx, height, width, params)

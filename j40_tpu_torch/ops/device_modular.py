@@ -290,6 +290,9 @@ def _finish_batch(dec, gm, lanes, pending, fstates, bitpos, use_prefix: bool,
     stats["kernel"] = route
     stats[count_key] = stats.get(count_key, 0) + len(lanes)
     stats["tokens"] = stats.get("tokens", 0) + sum(ln.nsym for ln in lanes)
+    # one plane batch per (class, slot); those on a wavefront kernel are
+    # counted where the route is chosen (_count_wavefront)
+    stats["reconstructions"] = stats.get("reconstructions", 0) + len(pending)
     stats["setup_s"] = stats.get("setup_s", 0.0) + (t_setup - t0)
     stats["scan_fetch_s"] = stats.get("scan_fetch_s", 0.0) + (t_fetch - t_setup)
     stats["write_s"] = stats.get("write_s", 0.0) + (time.perf_counter() - t_fetch)
@@ -300,6 +303,15 @@ def _route(dec) -> str:
     """The token decode's route: the CUDA kernel, or its plain version on
     a CPU decode."""
     return "cuda" if dec.device.type == "cuda" else "plain"
+
+
+def _count_wavefront(dec) -> None:
+    """Count one (class, slot) plane batch reconstructed on a wavefront
+    (kernels W1-W3 on the card, ops/wavefront_kernels.py), beside
+    `reconstructions`, which also counts the slots a cumsum or nothing
+    reconstructs."""
+    stats = dec.stats.setdefault("device_modular", {})
+    stats["wavefronts"] = stats.get("wavefronts", 0) + 1
 
 
 def _decode_lane_batch(dec, gm, lanes, use_prefix: bool):
@@ -335,6 +347,8 @@ def _decode_lane_batch(dec, gm, lanes, use_prefix: bool):
             else:
                 rec = reconstruct_channel(res, predictor, h, w)
                 ovf = torch.zeros(len(lis), dtype=torch.bool, device=dev)
+            if predictor in (5, 6):
+                _count_wavefront(dec)
             rec, bad = _range_check(gm, rec, len(lis))
             pending.append((lis, slot, rec, bad, ovf))
             off += w * h
@@ -378,12 +392,16 @@ def _decode_lane_batch_ctx(dec, gm, lanes, use_prefix: bool):
             if wp_params is not None and not np.isin(pred, (0, 1, 2, 5)).all():
                 rec, ovf = wp_reconstruct_ovf(
                     res, torch.from_numpy(pred).to(dev), h, w, wp_params)
+                _count_wavefront(dec)
             elif (pred != pred.flat[0]).any():
                 rec = mixed_reconstruct(res, torch.from_numpy(pred).to(dev), h, w)
                 ovf = zero
+                _count_wavefront(dec)
             else:
                 rec = reconstruct_channel(res, int(pred.flat[0]), h, w)
                 ovf = zero
+                if pred.flat[0] == 5:
+                    _count_wavefront(dec)
             rec, bad = _range_check(gm, rec, len(lis))
             pending.append((lis, slot, rec, bad, ovf))
             off += w * h
@@ -419,6 +437,7 @@ def _decode_lane_batch_ntree(dec, gm, lanes, use_prefix: bool):
             res = unpack_signed_dev(vals[rows, off : off + w * h]).reshape(len(lis), h, w)
             # channel index = pick slot (RGB channels 0..2)
             rec, ovf = tree_wp_reconstruct(res, tree_key, slot, sidx, h, w, wp_params)
+            _count_wavefront(dec)
             rec, bad = _range_check(gm, rec, len(lis))
             pending.append((lis, slot, rec, bad, ovf))
             off += w * h

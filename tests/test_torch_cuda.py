@@ -439,11 +439,19 @@ def test_token_kernel_vs_plain(cuda, name):
                 assert torch.equal(a.cpu(), b.cpu()) and torch.equal(a.cpu(), c)
 
 
+#: the wavefront kernels' launch counters (ops/wavefront_kernels.py)
+WAVEFRONTS = ("wavefront", "wavefront_mixed", "wavefront_wp", "wavefront_wp_codes",
+              "wavefront_tree")
+
+
 @pytest.mark.parametrize("name", MODULAR)
 def test_modular_device_route_on_card_vs_cpu(cuda, name):
     """Decoder(backend="device") on a Modular stream: the token kernel and
-    the torch-op wavefronts on the card give device="cpu"'s RGBA and the
-    host plan's, bit for bit, with every eligible section on the card."""
+    the wavefront kernels on the card give device="cpu"'s RGBA and the
+    host plan's, bit for bit, with every eligible section on the card and
+    one wavefront launch a (class, slot) plane batch that the route sends
+    to a wavefront (`wavefronts`; a static tree's slot whose predictor is
+    0, 1 or 2 everywhere takes a cumsum)."""
     data = _modular(name)
     lanes = sum(len(b) for b in _lane_batches(data))
     _, host = _decode_rgba(data, backend="numpy")
@@ -453,7 +461,189 @@ def test_modular_device_route_on_card_vs_cpu(cuda, name):
         assert K.launches["tokens"] == (len(_lane_batches(data)) if dev == "cuda" else 0)
         dm = dec.stats["device_modular"]
         assert dm.get("lanes", 0) + dm.get("ctx_lanes", 0) + dm.get("ntree_lanes", 0) == lanes
+        waves = sum(K.launches[k] for k in WAVEFRONTS)
+        assert 0 < dm["wavefronts"] <= dm["reconstructions"]
+        assert waves == (dm["wavefronts"] if dev == "cuda" else 0)
+        if not name.startswith("static"):
+            assert dm["wavefronts"] == dm["reconstructions"]
         np.testing.assert_array_equal(rgba, host)
+
+
+# ------------------------------------------------ the wavefronts (W1-W3)
+
+#: (L, H, W): the design test's shapes (tests/test_torch_wavefront_design.py),
+#: planes taller than a CTA's threads (W1 1024, W2 512: each thread walks
+#: 2 rows), and the main path's 16 lanes of 256x256
+WF_SHAPES = [(3, 13, 17), (2, 1, 9), (2, 7, 1), (2, 9, 2), (2, 70, 6), (2, 1100, 3),
+             (2, 600, 4), (16, 256, 256)]
+
+
+def _wf_case(L, H, W, seed=0):
+    from test_torch_wavefront_design import _res
+
+    rng = np.random.default_rng(seed + H * 7 + W)
+    res = torch.from_numpy(_res(seed + H + W, (L, H, W)))
+    codes = torch.from_numpy(rng.integers(-2, 15, size=(L, H, W)).astype(np.int32))
+    return res, codes
+
+
+def _same_wf(got, want, name):
+    torch.cuda.synchronize()
+    assert K.launches[name] == 1, K.launches
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("mode", ["gradient", "mixed"])
+@pytest.mark.parametrize("L,H,W", WF_SHAPES)
+def test_wavefront_w1_vs_plain(cuda, mode, L, H, W):
+    """W1 (plain_wavefront): the gradient, and per-pixel codes (outside
+    0-2 the gradient), equal to the plain version on the CPU."""
+    from j40_tpu_torch.ops import wavefront_kernels as WK
+
+    res, codes = _wf_case(L, H, W)
+    codes = codes if mode == "mixed" else None
+    K.reset_launches()
+    got = WK.plain_wavefront(res.to(cuda), None if codes is None else codes.to(cuda), H, W)
+    _same_wf(got, WK.plain_wavefront(res, codes, H, W),
+             "wavefront" if codes is None else "wavefront_mixed")
+
+
+@pytest.mark.parametrize("params", ["default", "custom"])
+@pytest.mark.parametrize("mode", ["wp", "codes"])
+@pytest.mark.parametrize("L,H,W", WF_SHAPES)
+def test_wavefront_w2_vs_plain(cuda, params, mode, L, H, W):
+    """W2 (wp_wavefront): WP alone, and per-pixel codes -2..14 (outside
+    0-12 predict 0); planes and overflow flags equal to the plain
+    version's."""
+    from test_torch_wavefront_design import PARAMS
+
+    from j40_tpu_torch.ops import wavefront_kernels as WK
+
+    res, codes = _wf_case(L, H, W, 1)
+    codes = codes if mode == "codes" else None
+    p = PARAMS[params]
+    K.reset_launches()
+    got = WK.wp_wavefront(res.to(cuda), None if codes is None else codes.to(cuda), H, W, p)
+    _same_wf(got, WK.wp_wavefront(res, codes, H, W, p),
+             "wavefront_wp" if codes is None else "wavefront_wp_codes")
+
+
+def _big_tree(branches: int, seed: int):
+    """A complete binary tree of `branches` branches over properties 0-15,
+    leaves with codes 0-13, offsets and multipliers: 2 * branches + 1
+    nodes of 56 bytes (6001 nodes: more than shared memory holds)."""
+    rng = np.random.default_rng(seed)
+    return tuple(
+        (int(rng.integers(0, 16)), int(rng.integers(-20, 20)), 2 * i + 1, 2 * i + 2, 0, 0, 0)
+        if i < branches else
+        (-1, 0, 0, 0, int(rng.integers(0, 14)), int(rng.integers(-3, 4)),
+         int(rng.integers(-2, 4)))
+        for i in range(2 * branches + 1))
+
+
+@pytest.mark.parametrize("tree", ["e3", "offsets", "deep", "big"])
+@pytest.mark.parametrize("L,H,W", [WF_SHAPES[0], WF_SHAPES[1], WF_SHAPES[3], WF_SHAPES[6],
+                                   WF_SHAPES[-1]])
+def test_wavefront_w3_vs_plain(cuda, tree, L, H, W):
+    """W3 (tree_wavefront): the MA-tree walk in the step, on the design
+    test's trees and a 6001-node tree read from global memory."""
+    from test_torch_wavefront_design import PARAMS, TREES
+
+    from j40_tpu_torch.ops import wavefront_kernels as WK
+
+    res, _ = _wf_case(L, H, W, 2)
+    key = _big_tree(3000, 5) if tree == "big" else TREES[tree]
+    p = PARAMS["custom" if tree == "offsets" else "default"]
+    sidx = torch.arange(30, 30 + L, dtype=torch.int32)
+    K.reset_launches()
+    got = WK.tree_wavefront(res.to(cuda), key, W % 3, sidx.to(cuda), H, W, p)
+    _same_wf(got, WK.tree_wavefront(res, key, W % 3, sidx, H, W, p), "wavefront_tree")
+
+
+@pytest.mark.parametrize("mode", ["wp", "codes", "tree"])
+def test_wavefront_overflow_flags(cuda, mode):
+    """Lanes whose WP error state passes 2^24 are flagged as the plain
+    version flags them, and run to their end in range; the others stay
+    exact."""
+    from test_torch_wavefront_design import PARAMS, TREES
+
+    from j40_tpu_torch.ops import wavefront_kernels as WK
+
+    rng = np.random.default_rng(3)
+    res = np.zeros((4, 8, 40), np.int32)
+    res[0, :, ::2], res[0, :, 1::2] = 2 ** 28, -2 ** 28
+    res[2] = rng.choice([-2 ** 30, -1, 0, 1, 2 ** 30], size=(8, 40))
+    res[3] = rng.integers(-30000, 30001, size=(8, 40))
+    res = torch.from_numpy(res)
+    codes = torch.from_numpy(rng.integers(0, 13, size=(4, 8, 40)).astype(np.int32))
+    p = PARAMS["default"]
+    K.reset_launches()
+    if mode == "tree":
+        sidx = torch.arange(4, dtype=torch.int32)
+        got = WK.tree_wavefront(res.to(cuda), TREES["deep"], 1, sidx.to(cuda), 8, 40, p)
+        want = WK.tree_wavefront(res, TREES["deep"], 1, sidx, 8, 40, p)
+    else:
+        c = codes if mode == "codes" else None
+        got = WK.wp_wavefront(res.to(cuda), None if c is None else c.to(cuda), 8, 40, p)
+        want = WK.wp_wavefront(res, c, 8, 40, p)
+    _same_wf(got, want, {"wp": "wavefront_wp", "codes": "wavefront_wp_codes",
+                         "tree": "wavefront_tree"}[mode])
+    assert want[1][0] and not want[1][1]
+
+
+def test_wavefront_wrappers_refuse(cuda):
+    """A mix of devices, a wrong dtype and a tree the kernel cannot walk
+    raise; nothing falls back to the torch ops."""
+    from test_torch_wavefront_design import PARAMS
+
+    from j40_tpu_torch.ops import wavefront_kernels as WK
+
+    res, codes = _wf_case(2, 9, 11)
+    with pytest.raises(ValueError):
+        WK.plain_wavefront(res.to(cuda), codes, 9, 11)
+    with pytest.raises(ValueError):
+        WK.wp_wavefront(res.to(cuda).float(), None, 9, 11, PARAMS["default"])
+    with pytest.raises(ValueError):
+        WK.tree_wavefront(res.to(cuda), ((16, 0, 1, 2, 0, 0, 0), (-1, 0, 0, 0, 5, 0, 1),
+                                         (-1, 0, 0, 0, 1, 0, 1)), 0, [0, 1], 9, 11,
+                          PARAMS["default"])
+
+
+@pytest.mark.parametrize("kernel", ["plain", "wp", "codes", "tree"])
+def test_wavefront_planes_at_the_ring_limit(cuda, kernel):
+    """A plane as tall as a CTA's ring in shared memory holds runs and equals
+    the plain version; one row more is refused with ValueError, before
+    any launch (a Modular group is at most 1024 rows)."""
+    from test_torch_wavefront_design import PARAMS, TREES
+
+    from j40_tpu_torch.ops import wavefront_kernels as WK
+
+    most = WK.MAX_ROWS_PLAIN if kernel == "plain" else WK.MAX_ROWS_WP
+    p = PARAMS["default"]
+
+    def call(res, H):
+        codes = torch.from_numpy(np.random.default_rng(H).integers(
+            0, 13, size=(1, H, 1)).astype(np.int32)).to(res.device)
+        if kernel == "plain":
+            return WK.plain_wavefront(res, None, H, 1)
+        if kernel == "tree":
+            sidx = torch.zeros(1, dtype=torch.int32, device=res.device)
+            return WK.tree_wavefront(res, TREES["e3"], 0, sidx, H, 1, p)
+        return WK.wp_wavefront(res, codes if kernel == "codes" else None, H, 1, p)
+
+    res, _ = _wf_case(1, most, 1, 4)
+    name = {"plain": "wavefront", "wp": "wavefront_wp", "codes": "wavefront_wp_codes",
+            "tree": "wavefront_tree"}[kernel]
+    K.reset_launches()
+    _same_wf(call(res.to(cuda), most), call(res, most), name)
+    K.reset_launches()
+    with pytest.raises(ValueError, match="rows"):
+        call(torch.zeros((1, most + 1, 1), dtype=torch.int32, device=cuda), most + 1)
+    assert K.launches[name] == 0
 
 
 def _decode_rgba(data, **kw):

@@ -80,6 +80,16 @@ dec = Decoder(data, backend="device", device="cpu")
 dec.decode_frame()
 assert dec.stats["device_modular"]["lanes"] == 2
 assert dec.render_rgba8().shape == (16, 136, 4)
+# the wavefronts' wrappers (ops/wavefront_kernels.py), CPU tensors to
+# their plain versions
+import torch
+from j40_tpu_torch.modular.wp import WPParams
+from j40_tpu_torch.ops import wavefront_kernels as WK
+res = torch.from_numpy(rng.integers(-9, 10, size=(2, 5, 7)).astype(np.int32))
+assert WK.plain_wavefront(res, None, 5, 7).shape == (2, 5, 7)
+assert WK.wp_wavefront(res, None, 5, 7, WPParams())[1].tolist() == [False, False]
+tree = ((15, 0, 1, 2, 0, 0, 0), (-1, 0, 0, 0, 6, 0, 1), (-1, 0, 0, 0, 5, 0, 1))
+assert WK.tree_wavefront(res, tree, 0, [0, 1], 5, 7, WPParams())[0].shape == (2, 5, 7)
 # multi-device decode (parallel/mesh.py, parallel/sharded_*.py,
 # ops/sharded_filters.py, graft_entry.py) on a CPU mesh
 import j40_tpu_torch.graft_entry
@@ -138,16 +148,17 @@ def test_no_forbidden_imports(path):
 
 def test_every_kernel_source_is_built():
     """The one kernel library is built from every CUDA source of csrc/
-    (reconstruct.cu, filters.cu, hf.cu and tokens.cu, hashed with the
-    headers they include), and its wrappers are in the scan above."""
+    (reconstruct.cu, filters.cu, hf.cu, tokens.cu and wavefront.cu, hashed
+    with the headers they include), and its wrappers are in the scan
+    above."""
     from j40_tpu_torch.ops import _build
 
     assert sorted(_build.SOURCES) == sorted((PORT / "csrc").glob("*.cu"))
     assert {p.name for p in _build.SOURCES} == {"reconstruct.cu", "filters.cu", "hf.cu",
-                                                "tokens.cu"}
+                                                "tokens.cu", "wavefront.cu"}
     assert sorted(_build.HEADERS) == sorted((PORT / "csrc").glob("*.cuh"))
     for wrappers in ("filter_kernels.py", "hf_kernels.py", "token_kernels.py",
-                     "device_modular.py"):
+                     "device_modular.py", "wavefront_kernels.py"):
         assert (PORT / "ops" / wrappers) in set(PORT.rglob("*.py"))
 
 

@@ -308,6 +308,27 @@ def test_decode_sharded(jax_ref, name):
     assert _maxdiff(got, _host(blob, apply_filters=filters).render_rgba8()) <= 1
 
 
+def test_decode_sharded_ragged_width():
+    """The mixed_compute path on a ragged width: a 512x252 mixed stream
+    whose flat right band takes DCT32 varblocks up to x = 224, so one
+    reaches past W = 252 into the 8-padded grid.  Held against the port's
+    host plan, not against j40_tpu: its shard program crops each shard to
+    W before it scatters the varblocks with row stride W
+    (j40_tpu/parallel/sharded_decode.py:599-634), so such a varblock wraps
+    into columns 0.. of the next rows (183 levels off on this stream).
+    The port scatters before the crop."""
+    img = _walk((512, 252, 3), 6)
+    img[:, 160:] = img[3, 200]
+    blob = encode_vardct_mixed(img)
+    plan = TSD.plan_frame(blob, owners=2)
+    assert any((np.asarray(e["px"]) + 8 * e["vw8"] > 252).any()
+               for e in plan.classes.values()), "no varblock past the ragged edge"
+    got = TSD._run_sharded([plan], _mesh(2), ("rows",), False)[0]
+    assert plan.overlay is None, "group-aligned shards compute the classes"
+    assert got.shape == (512, 252, 3) and got.dtype == np.uint8
+    assert _maxdiff(got, _host(blob).render_rgba8()) <= 1
+
+
 def test_decode_sharded_batch(jax_ref):
     blobs = _batch_blobs()
     outs = TSD.decode_sharded_batch(blobs, _mesh(8, (2, 4), ("img", "rows")),

@@ -26,12 +26,14 @@ struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c 
 struct uint2 { uint32_t x, y; };
 struct uint4 { uint32_t x, y, z, w; };
 struct int2 { int x, y; };
+struct alignas(16) int4 { int x, y, z, w; };
 struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 #define __align__(n) __attribute__((aligned(n)))
 inline uint2 make_uint2(uint32_t a, uint32_t b) { return {a, b}; }
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return {a, b, c, d}; }
 inline int2 make_int2(int a, int b) { return {a, b}; }
+inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 extern thread_local dim3 threadIdx, blockIdx;
 extern dim3 blockDim, gridDim;
 struct ShimBlock;
