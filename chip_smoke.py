@@ -53,8 +53,8 @@ which raises on failure (the script then exits non-zero):
    its leaves; 1024x1024, made from bench.py's seeds) through
    `decode_file(data, backend="device", workers=4)`, each equal bit for
    bit to the host plan, with every section the port's own lane plan takes
-   on the token kernel, every (class, slot) plane batch on a wavefront
-   kernel, and the stream's own wavefront kernel launched.  The kernel
+   on the token kernel, each class's three slots in one launch of a
+   wavefront kernel, and the stream's own wavefront kernel launched.  The kernel
    launch counters, zeroed just before each path and read just after, show
    which kernels each went through;
 5. batch serving (j40_tpu_torch/parallel/batch.py) on two corpora of 64
@@ -1137,7 +1137,8 @@ def token_row(name: str, cfg: str, batch: list, dev) -> dict:
 
 #: the wavefront kernels' rows: (row name, stream, counter, the JAX program
 #: it replaces (a lax.scan inside jax.jit: no pl.pallas_call), the paths
-#: whose launches it counts)
+#: whose launches it counts); each on the route's one launch for the
+#: stream's class, its three slots of 16 lanes as 48 planes
 WAVEFRONT_ROWS = (
     ("wavefront_grad", "modular", "wavefront", "j40_tpu/ops/device_entropy.py:491",
      ("modular/device", "modular_global/device", "shent_1024/sharded8")),
@@ -1157,14 +1158,15 @@ WAVEFRONT_ROWS = (
 W1_OPS, W2_OPS, TREE_LEVEL_OPS, TREE_LEAF_OPS = 12, 140, 8, 10
 
 
-def wavefront_inputs(plan: dict, dev) -> dict:
-    """The first (class, slot) plane batch of a stream's lanes as
-    ops/device_modular.py hands it to a wavefront: the token kernel's
-    values of every lane's first slot (the lanes share one class here:
-    256x256 groups, one leaf or one tree), unpacked, with the leaf's or the
-    static tree's per-pixel multiplier and offset applied; a static tree's
-    per-pixel codes, a neighbour-property tree and the lanes' stream
-    indices."""
+def wavefront_inputs(plan: dict, dev, slots: int = 3) -> dict:
+    """A class's `slots` (class, slot) plane batches of a stream's lanes as
+    ops/device_modular.py hands them to a wavefront in one launch: the
+    token kernel's values of every lane's slots (the lanes share one class
+    here: 256x256 groups, one leaf or one tree, three channels of one
+    shape), unpacked, slot after slot, with the leaf's or the static
+    tree's per-pixel multiplier and offset applied; a static tree's
+    per-pixel codes, a neighbour-property tree, the planes' channel and
+    stream indices."""
     from j40_tpu_torch.ops import device_modular as DM
     from j40_tpu_torch.ops import token_kernels as TKN
     from j40_tpu_torch.ops.device_entropy import unpack_signed_dev
@@ -1174,16 +1176,20 @@ def wavefront_inputs(plan: dict, dev) -> dict:
     vals = TKN.launch_tokens(to_device(DM.pack_lanes(batch), dev))[0]
     first = batch[0]
     w, h = first.picks[0][3:]
-    assert all(ln.picks[0][3:] == (w, h) for ln in batch)
-    res = unpack_signed_dev(vals[:, : w * h]).reshape(len(batch), h, w)
-    out = dict(h=h, w=w, lanes=len(batch), wp=first.wp)
+    assert all(p[3:] == (w, h) for ln in batch for p in ln.picks[:slots])
+    L = len(batch)
+    res = torch.cat([unpack_signed_dev(vals[:, k * w * h : (k + 1) * w * h])
+                     for k in range(slots)]).reshape(slots * L, h, w)
+    out = dict(h=h, w=w, lanes=slots * L, slots=slots, wp=first.wp)
     if first.ntree is not None:
         assert all(ln.ntree[0] == first.ntree[0] for ln in batch)
         out.update(tree=first.ntree[0], sidx=torch.tensor(
-            [ln.ntree[1] for ln in batch], dtype=torch.int32, device=dev))
+            [ln.ntree[1] for ln in batch] * slots, dtype=torch.int32, device=dev),
+            cidx=torch.arange(slots, dtype=torch.int32, device=dev).repeat_interleave(L))
     elif first.ctx is not None:
         def plane(k):
-            return torch.from_numpy(np.stack([ln.ctx[0][k] for ln in batch])).to(dev)
+            return torch.from_numpy(np.concatenate([np.stack([ln.ctx[c][k] for ln in batch])
+                                                    for c in range(slots)])).to(dev)
 
         res = res * plane("mult") + plane("offset")
         out["codes"] = plane("pred")
@@ -1209,9 +1215,9 @@ def phase_wavefront_kernels(plans: dict, dev) -> list[dict]:
     rows = []
     for name, cfg, counter, replaces, paths in WAVEFRONT_ROWS:
         inp = wavefront_inputs(plans[cfg], dev)
-        res, h, w, L = inp["res"], inp["h"], inp["w"], inp["lanes"]
+        res, h, w, L, slots = inp["res"], inp["h"], inp["w"], inp["lanes"], inp["slots"]
         wp = inp["wp"] or WPParams()
-        codes, tree, sidx = inp.get("codes"), inp.get("tree"), inp.get("sidx")
+        codes, tree, sidx, cidx = (inp.get(k) for k in ("codes", "tree", "sidx", "cidx"))
         nbytes = res.numel() * 4 * 2 + (codes.numel() * 4 if codes is not None else 0)
         if counter in ("wavefront", "wavefront_mixed"):
             assert (codes is None) == (counter == "wavefront")
@@ -1242,17 +1248,23 @@ def phase_wavefront_kernels(plans: dict, dev) -> list[dict]:
             depth = WK._tree_meta(tuple(tree))[1]
 
             def run():
-                return WK.tree_wavefront(res, tree, 0, sidx, h, w, wp)
+                return WK.tree_wavefront(res, tree, cidx, sidx, h, w, wp)
 
             def plain():
-                return DE._tree_wp_reconstruct(res, h, w, wp, tree, 0, sidx)
+                # the plain version takes one channel: a call a slot
+                n = L // slots
+                outs = [DE._tree_wp_reconstruct(res[c * n:(c + 1) * n], h, w, wp, tree, c,
+                                                sidx[c * n:(c + 1) * n]) for c in range(slots)]
+                return tuple(torch.cat(t) for t in zip(*outs))
 
             D = 2 * h + w - 2
             ops = (W2_OPS + TREE_LEVEL_OPS * depth + TREE_LEAF_OPS) * res.numel()
-            nbytes += L + len(tree) * 56 + L * 4
+            nbytes += L + len(tree) * 16 + L * 8
             mode = f"tree of {len(tree)} nodes, depth {depth}"
-        got, want = run(), plain()
-        torch.cuda.synchronize()
+        # the plain version's one call both checks the kernel and is timed
+        got, wanted = run(), []
+        plain_ms = event_ms(lambda: wanted.append(plain()))
+        want = wanted[0]
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         for a, b in zip(got, want):
@@ -1266,17 +1278,17 @@ def phase_wavefront_kernels(plans: dict, dev) -> list[dict]:
         row = dict(
             name=name, route="cuda", source="j40_tpu_torch/csrc/wavefront.cu",
             replaces=replaces, counter=counter, paths=list(paths), mode=mode,
-            shape=f"{L} lanes of {h}x{w} int32 ({cfg}, slot 0, {mode})",
+            shape=f"{L} planes of {h}x{w} int32 ({cfg}, slots 0-{slots - 1}, one launch, {mode})",
             max_abs_err=0, flagged_lanes=flagged, ms=ms, timer=timer,
-            ms_events=event_ms(run, 20), plain_ms=event_ms(plain),
+            ms_events=event_ms(run, 20), plain_ms=plain_ms,
             plain_timer="CUDA events", library_ms=None, library=None,
             bound_ms=b[0], bound_by=b[1], diagonals=D, ns_per_diagonal=ms * 1e6 / D)
         rows.append(row)
         print(f"kernel {name} [{row['shape']}]: {ms:.4f} ms ({timer}; events "
-              f"{row['ms_events']:.4f} ms), {D} diagonals, {row['ns_per_diagonal']:.1f} ns "
-              f"a diagonal, plain {row['plain_ms']:.1f} ms (one call, CUDA events), bound "
-              f"{b[0]:.4f} ms ({b[1]}), flagged lanes {flagged}; planes and flags equal "
-              f"to the plain version")
+              f"{row['ms_events']:.4f} ms), {D} diagonals, "
+              f"{row['ns_per_diagonal']:.1f} ns a diagonal, plain {row['plain_ms']:.1f} ms "
+              f"(one call, CUDA events), bound {b[0]:.4f} ms ({b[1]}), flagged lanes "
+              f"{flagged}; planes and flags equal to the plain version")
     return rows
 
 
@@ -1315,8 +1327,8 @@ def phase_modular_path(name: str, data: bytes, plan: dict) -> dict:
     workers=4)`: RGBA equal bit for bit to the host plan, every eligible
     section of the port's own plan on the device lanes, the token kernel
     launched once a lane batch and the wavefront kernels once a (class,
-    slot) plane batch (counters zeroed just before the decode, read just
-    after); Mpix/s beside the host plan's."""
+    kernel), for three (class, slot) plane batches (counters zeroed just
+    before the decode, read just after); Mpix/s beside the host plan's."""
     from j40_tpu_torch.ops import kernels as K
 
     _, ref = _decode(data, "numpy")
@@ -1330,12 +1342,13 @@ def phase_modular_path(name: str, data: bytes, plan: dict) -> dict:
     taken = sum(dm.get(k, 0) for k in ("lanes", "ctx_lanes", "ntree_lanes"))
     assert taken == len(plan["lanes"]) > 0, f"{name}: {dm} against {len(plan['lanes'])}"
     assert launches["tokens"] == len(plan["batches"]), f"{name}: launches {launches}"
-    # one wavefront launch a (class, slot) plane batch that the route sends
-    # to a wavefront (`wavefronts`, counted where ops/device_modular.py
-    # chooses it), here every slot: each predicts with 5, 6, per-pixel
-    # codes or a tree; and the stream's own wavefront kernel launched
+    # one wavefront launch a (class, kernel) (`wavefronts`, counted where
+    # ops/device_modular.py chooses it) against one reconstruction a
+    # (class, slot): here a class's three slots share their shape and
+    # kernel (5, 6, per-pixel codes or a tree), so one launch takes them;
+    # and the stream's own wavefront kernel launched
     waves = sum(launches[k] for k in WAVEFRONT_COUNTERS)
-    assert waves == dm["wavefronts"] == dm["reconstructions"] > 0, \
+    assert waves == dm["wavefronts"] > 0 and 3 * waves == dm["reconstructions"], \
         f"{name}: launches {launches}, route {dm}"
     for row, _, counter, _, paths in WAVEFRONT_ROWS:
         if f"{name}/device" in paths:
@@ -2375,13 +2388,16 @@ def main() -> int:
                                 else m.get("path") not in other))
         assert r["launches"] > 0, f"{r['name']} never launched on the main path"
         assert r.get("timer"), f"{r['name']} names no timer"
+        if "diagonals" in r:  # a wavefront row: its launches stream by stream
+            r["launches_per_stream"] = {m["path"]: m["launches"][r["counter"]]
+                                        for m in mains + sharded if m.get("path") in paths}
     gathers = [gather_ab(k, streams[k]) for k in ("config3", "config4")]
     profiles = [phase_profile(k, streams[k]) for k in ("config3", "config4")]
     profiles.append(phase_profile("config12f", streams["config12f"], filters=True))
     profiles += [phase_profile(k, streams[k], backend="device")
                  for k in ("config4", "hf_ctx_2048")]
     # the modular device lanes: a token launch, then a wavefront launch a
-    # (class, slot) plane batch
+    # (class, kernel)
     profiles += [phase_profile(k, streams[k], backend="device", warm=False)
                  for k in ("modular", "modular_e3gt")]
 
@@ -2405,7 +2421,7 @@ def main() -> int:
     # statistics, their rates and the time between CUDA events around the
     # call; the batch rows the paths whose launches they count
     extra = ("timer", "plain_timer", "ns_per_symbol", "symbols_per_s", "design", "sync",
-             "ms_events", "paths", "diagonals", "ns_per_diagonal")
+             "ms_events", "paths", "diagonals", "ns_per_diagonal", "launches_per_stream")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in kernels]}))
     print(card["nvidia_smi"])

@@ -127,8 +127,10 @@ def load_kernels():
         # csrc/wavefront.cu
         lib.j40tt_wavefront.argtypes = [p, p, p, i, i, i, p]
         lib.j40tt_wavefront.restype = i
-        lib.j40tt_wavefront_wp.argtypes = [p, p, p, i, i, i, p, p, p, p, i, i, i, p]
+        lib.j40tt_wavefront_wp.argtypes = [p, p, p, i, i, p, p, p, p, p, i, i, i, p]
         lib.j40tt_wavefront_wp.restype = i
+        lib.j40tt_wavefront_limits.argtypes = [p]
+        lib.j40tt_wavefront_limits.restype = i
         lib.j40tt_error_string.argtypes = [i]
         lib.j40tt_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -724,11 +724,12 @@ def _tree_wp_reconstruct(res, height: int, width: int, params, tree_key,
     return _wp_wavefront(res, height, width, params, choose)
 
 
-def tree_wp_reconstruct(res, tree_key, cidx: int, sidx, height: int,
+def tree_wp_reconstruct(res, tree_key, cidx, sidx, height: int,
                         width: int, params):
     """Public wrapper of _tree_wp_reconstruct (see its docstring): kernel W3
     on CUDA tensors, the plain version on CPU ones
-    (ops/wavefront_kernels.py)."""
+    (ops/wavefront_kernels.py).  `cidx` is one channel index for every
+    plane or one a plane (L,), so that a call takes several channels."""
     from .wavefront_kernels import tree_wavefront
 
     return tree_wavefront(res, tree_key, cidx, sidx, height, width, params)

@@ -4,10 +4,11 @@ Counterpart of j40_tpu/ops/device_modular.py.  The TOC gives every group an
 independent byte range with a fresh entropy stream (reference j40.h:5527-5537,
 7749-7776; design note j40.h:447), so eligible sections decode on the card
 one lane per section: the token kernel (ops/token_kernels.py, csrc/tokens.cu)
-decodes every lane's hybrid-int values, then the wavefront reconstructions of
-ops/device_entropy.py run as torch ops on the same device.  Host work is
-reduced to the few header bits of each section, the checks and the
-write-back.
+decodes every lane's hybrid-int values, then the wavefront kernels
+(ops/wavefront_kernels.py, csrc/wavefront.cu) reconstruct the planes: lanes
+of one leaf or tree and slot shapes form a class, and the slots of a class
+that share a shape and a kernel go in one launch.  Host work is reduced to
+the few header bits of each section, the checks and the write-back.
 
 Eligibility is per section (anything else takes the host path with
 identical results): the section's MA tree, local or global, is
@@ -44,6 +45,7 @@ from ..errors import check
 from ..io.bits import BitReader
 from ..modular.decode import Channel, ModularImage, parse_modular_header
 from . import token_kernels as TKN
+from . import wavefront_kernels as WK
 from .device_entropy import (
     mixed_reconstruct,
     reconstruct_channel,
@@ -182,6 +184,9 @@ def _prepare_lane(dec, state, s):
         # pixel -> host path.
         if not spec_is_device_simple(sub.codespec):
             return None
+        on_card = dec.device is not None and dec.device.type == "cuda"
+        if on_card and len(sub.tree) > WK.limits()["tree_nodes"]:
+            return None  # kernel W3 holds its tree in shared memory
         tree_key = tuple(
             (-1, 0, 0, 0, n.predictor, n.offset, n.multiplier)
             if n.is_leaf else
@@ -290,8 +295,8 @@ def _finish_batch(dec, gm, lanes, pending, fstates, bitpos, use_prefix: bool,
     stats["kernel"] = route
     stats[count_key] = stats.get(count_key, 0) + len(lanes)
     stats["tokens"] = stats.get("tokens", 0) + sum(ln.nsym for ln in lanes)
-    # one plane batch per (class, slot); those on a wavefront kernel are
-    # counted where the route is chosen (_count_wavefront)
+    # one plane batch per (class, slot); the wavefront launches are
+    # counted where the route makes them (_launch_groups)
     stats["reconstructions"] = stats.get("reconstructions", 0) + len(pending)
     stats["setup_s"] = stats.get("setup_s", 0.0) + (t_setup - t0)
     stats["scan_fetch_s"] = stats.get("scan_fetch_s", 0.0) + (t_fetch - t_setup)
@@ -305,13 +310,30 @@ def _route(dec) -> str:
     return "cuda" if dec.device.type == "cuda" else "plain"
 
 
-def _count_wavefront(dec) -> None:
-    """Count one (class, slot) plane batch reconstructed on a wavefront
-    (kernels W1-W3 on the card, ops/wavefront_kernels.py), beside
-    `reconstructions`, which also counts the slots a cumsum or nothing
-    reconstructs."""
+def _stack(planes: list, group: list[int]):
+    """The group's (L, H, W) slot planes as one (len(group) * L, H, W) batch."""
+    return planes[group[0]] if len(group) == 1 else torch.cat([planes[s] for s in group])
+
+
+def _launch_groups(dec, shapes, kinds, run, n: int) -> dict:
+    """One wavefront launch (kernels W1-W3 on the card,
+    ops/wavefront_kernels.py) for a class's slots of one shape that take
+    one kernel (`kinds`, None: no wavefront): `run(group, kind, h, w)` ->
+    (planes, overflow flags) of the group's slots as one batch of planes.
+    Counts each launch in `wavefronts` (`reconstructions` counts the
+    (class, slot) plane batches, those a cumsum or nothing reconstructs
+    too) and returns each slot's (rec, ovf) of its n lanes."""
+    groups: dict[tuple, list[int]] = {}
+    for slot, key in enumerate(zip(shapes, kinds)):
+        if key[1] is not None:
+            groups.setdefault(key, []).append(slot)
     stats = dec.stats.setdefault("device_modular", {})
-    stats["wavefronts"] = stats.get("wavefronts", 0) + 1
+    out = {}
+    for ((w, h), kind), group in groups.items():
+        rec, ovf = run(group, kind, h, w)
+        stats["wavefronts"] = stats.get("wavefronts", 0) + 1
+        out.update(zip(group, zip(rec.split(n), ovf.split(n))))
+    return out
 
 
 def _decode_lane_batch(dec, gm, lanes, use_prefix: bool):
@@ -334,24 +356,32 @@ def _decode_lane_batch(dec, gm, lanes, use_prefix: bool):
     pending = []  # (lane indices, pick slot, plane batch, bad flag, ovf flag)
     for (predictor, mult, offset, shapes, wp_params), lis in classes.items():
         rows = torch.tensor(lis, device=dev)
-        off = 0
-        for slot, (w, h) in enumerate(shapes):
-            res = unpack_signed_dev(vals[rows, off : off + w * h])
+        n = len(lis)
+        res, off = [], 0
+        for w, h in shapes:
+            r = unpack_signed_dev(vals[rows, off : off + w * h])
             if mult != 1:
-                res = res * mult
+                r = r * mult
             if offset != 0:
-                res = res + offset
-            res = res.reshape(len(lis), h, w)
-            if predictor == 6:
-                rec, ovf = wp_reconstruct_ovf(res, None, h, w, wp_params)
-            else:
-                rec = reconstruct_channel(res, predictor, h, w)
-                ovf = torch.zeros(len(lis), dtype=torch.bool, device=dev)
-            if predictor in (5, 6):
-                _count_wavefront(dec)
-            rec, bad = _range_check(gm, rec, len(lis))
-            pending.append((lis, slot, rec, bad, ovf))
+                r = r + offset
+            res.append(r.reshape(n, h, w))
             off += w * h
+        zero = torch.zeros(n, dtype=torch.bool, device=dev)
+        if predictor in (5, 6):
+            # the wavefront: one launch for the class's slots of a shape
+            def run(group, _, h, w):
+                if predictor == 6:
+                    return wp_reconstruct_ovf(_stack(res, group), None, h, w, wp_params)
+                return (reconstruct_channel(_stack(res, group), 5, h, w),
+                        zero.repeat(len(group)))
+
+            recs = _launch_groups(dec, shapes, [predictor] * len(shapes), run, n)
+        else:
+            recs = {slot: (reconstruct_channel(res[slot], predictor, h, w), zero)
+                    for slot, (w, h) in enumerate(shapes)}
+        for slot in range(len(shapes)):
+            rec, bad = _range_check(gm, recs[slot][0], n)
+            pending.append((lis, slot, rec, bad, recs[slot][1]))
     return _finish_batch(dec, gm, lanes, pending, fstates, bitpos, use_prefix,
                          _route(dec), "lanes", t0, t_setup)
 
@@ -375,36 +405,48 @@ def _decode_lane_batch_ctx(dec, gm, lanes, use_prefix: bool):
     pending = []
     for (shapes, wp_params), lis in classes.items():
         rows = torch.tensor(lis, device=dev)
-        off = 0
+        n = len(lis)
+        zero = torch.zeros(n, dtype=torch.bool, device=dev)
+        res, preds, kinds, off = [], [], [], 0
         for slot, (w, h) in enumerate(shapes):
-            res = unpack_signed_dev(vals[rows, off : off + w * h])
+            r = unpack_signed_dev(vals[rows, off : off + w * h])
             plane = lambda k: np.stack([lanes[li].ctx[slot][k] for li in lis])
             mult, offp, pred = plane("mult"), plane("offset"), plane("pred")
-            res = res.reshape(len(lis), h, w)
+            r = r.reshape(n, h, w)
             if (mult != 1).any():
-                res = res * torch.from_numpy(mult).to(dev)
+                r = r * torch.from_numpy(mult).to(dev)
             if offp.any():
-                res = res + torch.from_numpy(offp).to(dev)
+                r = r + torch.from_numpy(offp).to(dev)
+            res.append(r)
+            preds.append(pred)
             # per-SLOT wavefront choice: a tree may gate WP behind (say) a
             # channel-index branch, so only slots whose pred plane holds a
             # code outside {0,1,2,5} pay the WP wavefront
-            zero = torch.zeros(len(lis), dtype=torch.bool, device=dev)
             if wp_params is not None and not np.isin(pred, (0, 1, 2, 5)).all():
-                rec, ovf = wp_reconstruct_ovf(
-                    res, torch.from_numpy(pred).to(dev), h, w, wp_params)
-                _count_wavefront(dec)
+                kinds.append("wp")
             elif (pred != pred.flat[0]).any():
-                rec = mixed_reconstruct(res, torch.from_numpy(pred).to(dev), h, w)
-                ovf = zero
-                _count_wavefront(dec)
-            else:
-                rec = reconstruct_channel(res, int(pred.flat[0]), h, w)
-                ovf = zero
-                if pred.flat[0] == 5:
-                    _count_wavefront(dec)
-            rec, bad = _range_check(gm, rec, len(lis))
-            pending.append((lis, slot, rec, bad, ovf))
+                kinds.append("mixed")
+            else:  # one predictor: the gradient's wavefront, or a cumsum (None)
+                kinds.append(5 if pred.flat[0] == 5 else None)
             off += w * h
+
+        def run(group, kind, h, w):
+            # one launch for the class's slots of a shape and a kernel
+            batch = _stack(res, group)
+            if kind == 5:
+                return reconstruct_channel(batch, 5, h, w), zero.repeat(len(group))
+            pcode = torch.from_numpy(np.concatenate([preds[s] for s in group])).to(dev)
+            if kind == "wp":
+                return wp_reconstruct_ovf(batch, pcode, h, w, wp_params)
+            return mixed_reconstruct(batch, pcode, h, w), zero.repeat(len(group))
+
+        recs = _launch_groups(dec, shapes, kinds, run, n)
+        for slot, (w, h) in enumerate(shapes):
+            if slot not in recs:  # predictor 0, 1 or 2 everywhere: no wavefront
+                recs[slot] = (reconstruct_channel(res[slot], int(preds[slot].flat[0]), h, w),
+                              zero)
+            rec, bad = _range_check(gm, recs[slot][0], n)
+            pending.append((lis, slot, rec, bad, recs[slot][1]))
     return _finish_batch(dec, gm, lanes, pending, fstates, bitpos, use_prefix,
                          f"{_route(dec)}-ctx", "ctx_lanes", t0, t_setup)
 
@@ -430,17 +472,25 @@ def _decode_lane_batch_ntree(dec, gm, lanes, use_prefix: bool):
     pending = []
     for (tree_key, wp_params, shapes), lis in classes.items():
         rows = torch.tensor(lis, device=dev)
+        n = len(lis)
         sidx = torch.tensor([lanes[li].ntree[1] for li in lis], dtype=torch.int32,
                             device=dev)
-        off = 0
-        for slot, (w, h) in enumerate(shapes):
-            res = unpack_signed_dev(vals[rows, off : off + w * h]).reshape(len(lis), h, w)
-            # channel index = pick slot (RGB channels 0..2)
-            rec, ovf = tree_wp_reconstruct(res, tree_key, slot, sidx, h, w, wp_params)
-            _count_wavefront(dec)
-            rec, bad = _range_check(gm, rec, len(lis))
-            pending.append((lis, slot, rec, bad, ovf))
+        res, off = [], 0
+        for w, h in shapes:
+            res.append(unpack_signed_dev(vals[rows, off : off + w * h]).reshape(n, h, w))
             off += w * h
+
+        def run(group, _, h, w):
+            # one launch for the class's slots of a shape; the channel index
+            # of a plane is its pick slot (RGB channels 0..2)
+            cidx = torch.tensor(group, dtype=torch.int32, device=dev).repeat_interleave(n)
+            return tree_wp_reconstruct(_stack(res, group), tree_key, cidx,
+                                       sidx.repeat(len(group)), h, w, wp_params)
+
+        recs = _launch_groups(dec, shapes, ["tree"] * len(shapes), run, n)
+        for slot in range(len(shapes)):
+            rec, bad = _range_check(gm, recs[slot][0], n)
+            pending.append((lis, slot, rec, bad, recs[slot][1]))
     return _finish_batch(dec, gm, lanes, pending, fstates, bitpos, use_prefix,
                          f"{_route(dec)}+tree-wavefront", "ntree_lanes", t0, t_setup)
 

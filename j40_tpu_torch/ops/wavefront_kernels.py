@@ -16,11 +16,28 @@ counter a kernel instance: `wavefront` (W1, the gradient),
 | tree_wavefront  | device_entropy._tree_wp_reconstruct | _tree_wp_reconstruct (W3) |
 
 Every result equals the plain version's bit for bit, planes and overflow
-flags alike.
+flags alike.  A call takes any number of planes of one shape, one CTA a
+plane: the Modular route sends every slot of a class that shares a shape
+and a kernel in one call.
+
+The kernels' design (csrc/wavefront.cu): a plane is a chain of D = k*H + W
+- k diagonals (k = 1 for W1, 2 for W2), so its time is D times one step's
+latency.  A warp owns a band of 32 rows, one lane a row; the row above
+comes from the lane above by shuffle, and for a band's first row from the
+band above through a ring in shared memory, each value beside its
+sequence number in one 64-bit word (no CTA barrier and no fence a
+diagonal).  Residuals and codes come a chunk of steps ahead, by cp.async
+into each warp's shared memory.  A plane taller than the CTA gives each
+warp several bands, which is deadlock-free up to a width
+(csrc's `tall_width_limit`); W3's tree lives in shared memory as one int4
+a node.  The wrappers check a launch against the limits the library
+reports (`limits()`: rows a CTA, those widths, the most tree nodes), so
+no copy of them lives here.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -31,13 +48,26 @@ from . import kernels as K
 
 #: props an MA tree walk reads on the card (modular/decode.py:355-401)
 N_PROPS = 16
-#: the dynamic shared memory a CTA may take (csrc/wavefront.cu's kSmemCap:
-#: sm_90's 227 KB a block, less 1 KB for W2's static table), and the rows
-#: whose ring it holds: 12 B a row in W1, 120 B a row in W2.  A Modular
-#: group is at most 1024 rows; the wrappers refuse a taller plane on CUDA.
-SMEM_CAP = 227 * 1024 - 1024
-MAX_ROWS_PLAIN = SMEM_CAP // 12
-MAX_ROWS_WP = SMEM_CAP // 120
+#: the fields of csrc/wavefront.cu's j40tt_wavefront_limits
+_LIMITS = ("threads_plain", "threads_mixed", "threads_wp", "tall_width_plain",
+           "tall_width_mixed", "tall_width_wp", "plain_chunk", "plain_ring", "wp_chunk",
+           "wp_ring", "tree_nodes")
+
+
+@functools.lru_cache(maxsize=1)
+def limits() -> dict:
+    """The kernels' limits, as the built library reports them: rows a CTA
+    (`threads_plain` W1, `threads_mixed` W1 with codes, `threads_wp` W2),
+    the widest plane taller than a CTA that each takes (`tall_width_*`: its
+    bands hand off deadlock-free up to that width; a Modular group is at
+    most 1024 on a side), the chunks and rings of the hand-off, and the
+    most nodes of a W3 tree (`tree_nodes`, in shared memory).  Builds the
+    library; only the CUDA branches ask."""
+    from ._build import load_kernels
+
+    out = (ctypes.c_int * len(_LIMITS))()
+    load_kernels().j40tt_wavefront_limits(out)
+    return dict(zip(_LIMITS, out))
 
 
 def _planes(name: str, t: torch.Tensor, height: int, width: int) -> int:
@@ -47,10 +77,17 @@ def _planes(name: str, t: torch.Tensor, height: int, width: int) -> int:
     return t.shape[0]
 
 
-def _rows(height: int, most: int) -> None:
-    if height > most:
-        raise ValueError(f"height {height}: the kernel's ring holds at most {most} rows "
-                         f"in shared memory")
+def _fits(kind: str, height: int, width: int) -> None:
+    """Raise ValueError on a plane kernel `kind` ("plain", "mixed", "wp")
+    does not take (csrc's fits)."""
+    if height < 1 or width < 1 or height * width >= 1 << 31:
+        raise ValueError(f"plane {height}x{width}: want 1 <= H * W < 2^31")
+    lim = limits()
+    threads, tall_width = lim[f"threads_{kind}"], lim[f"tall_width_{kind}"]
+    if height > threads and width > tall_width:
+        raise ValueError(f"plane of {height} rows, more than a CTA's {threads}: its "
+                         f"bands hand off deadlock-free up to width {tall_width}, "
+                         f"got {width}")
 
 
 def plain_wavefront(res, pcode, height: int, width: int):
@@ -62,7 +99,7 @@ def plain_wavefront(res, pcode, height: int, width: int):
         K._check("pcode", pcode, (L, height, width), torch.int32)
     if not K._on_cuda(res, *(() if pcode is None else (pcode,))):
         return DE._plain_wavefront(res, pcode, height, width)
-    _rows(height, MAX_ROWS_PLAIN)
+    _fits("plain" if pcode is None else "mixed", height, width)
     out = torch.empty_like(res)
     K._launch("wavefront" if pcode is None else "wavefront_mixed", "j40tt_wavefront",
               res.device, res.data_ptr(), 0 if pcode is None else pcode.data_ptr(),
@@ -76,7 +113,7 @@ def _params(params) -> np.ndarray:
 
 
 def _launch_wp(name, res, pcode, tree, depth, cidx, sidx, height, width, params):
-    _rows(height, MAX_ROWS_WP)
+    _fits("wp", height, width)
     L = res.shape[0]
     out = torch.empty_like(res)
     ovf = torch.empty(L, dtype=torch.bool, device=res.device)
@@ -84,7 +121,8 @@ def _launch_wp(name, res, pcode, tree, depth, cidx, sidx, height, width, params)
     K._launch(name, "j40tt_wavefront_wp", res.device, res.data_ptr(),
               0 if pcode is None else pcode.data_ptr(),
               0 if tree is None else tree.data_ptr(),
-              0 if tree is None else tree.shape[0], depth, cidx,
+              0 if tree is None else tree.shape[0], depth,
+              0 if cidx is None else cidx.data_ptr(),
               0 if sidx is None else sidx.data_ptr(),
               p.ctypes.data, out.data_ptr(), ovf.data_ptr(), L, height, width)
     return out, ovf
@@ -101,16 +139,17 @@ def wp_wavefront(res, pcode, height: int, width: int, params):
     if not K._on_cuda(res, *(() if pcode is None else (pcode,))):
         return DE._wp_reconstruct(res, pcode, height, width, params, pcode is not None)
     return _launch_wp("wavefront_wp" if pcode is None else "wavefront_wp_codes", res,
-                      pcode, None, 0, 0, None, height, width, params)
+                      pcode, None, 0, None, None, height, width, params)
 
 
 @functools.lru_cache(maxsize=64)
 def _tree_meta(tree_key) -> tuple[np.ndarray, int]:
-    """(nodes, 7) int64 of a flattened tree and its depth
-    (device_entropy._tree_depth, which the plain version walks too); raises
-    on a tree the kernel cannot walk: a property outside 0-15, or a child
-    index out of range, the root's or another branch's child (so no
-    cycle)."""
+    """A flattened tree's nodes as the kernel reads them, (nodes, 4) int64
+    (a branch: property, value, left, right; a leaf: -1, predictor,
+    offset, multiplier), and its depth (device_entropy._tree_depth, which
+    the plain version walks too).  Raises on a tree no walk can take, on
+    any device: no nodes, a property outside 0-15, or a child index out of
+    range, the root's or another branch's child (so no cycle)."""
     arr = np.asarray(tree_key, np.int64).reshape(-1, 7)
     n = arr.shape[0]
     if n == 0:
@@ -121,29 +160,54 @@ def _tree_meta(tree_key) -> tuple[np.ndarray, int]:
     kids = arr[branch][:, 2:4].ravel()
     if ((kids <= 0) | (kids >= n)).any() or len(np.unique(kids)) != len(kids):
         raise ValueError("tree: a child index out of range, the root or shared")
-    return arr, DE._tree_depth(tree_key)
+    packed = np.where(branch[:, None], arr[:, :4],
+                      np.stack([np.full(n, -1), arr[:, 4], arr[:, 5], arr[:, 6]], 1))
+    return packed, DE._tree_depth(tree_key)
+
+
+def _tree_pack(tree_key) -> np.ndarray:
+    """The nodes as the card's shared memory holds them, one int4 each;
+    raises on a field outside int32."""
+    packed = _tree_meta(tree_key)[0]
+    if (packed < -(1 << 31)).any() or (packed >= 1 << 31).any():
+        raise ValueError("tree: a value, predictor, offset or multiplier outside int32")
+    return packed.astype(np.int32)
 
 
 @functools.lru_cache(maxsize=64)
 def _device_tree(tree_key, device: torch.device) -> torch.Tensor:
-    """A tree's nodes on the card, copied once a (tree, device)."""
-    return torch.from_numpy(_tree_meta(tree_key)[0]).to(device)
+    """A tree's packed nodes on the card, copied once a (tree, device);
+    raises on a tree larger than the kernel's shared memory holds."""
+    most = limits()["tree_nodes"]
+    if len(tree_key) > most:
+        raise ValueError(f"tree: {len(tree_key)} nodes, more than the {most} that fit "
+                         f"in shared memory")
+    return torch.from_numpy(_tree_pack(tree_key)).to(device)
 
 
-def tree_wavefront(res, tree_key, cidx: int, sidx, height: int, width: int, params):
+def tree_wavefront(res, tree_key, cidx, sidx, height: int, width: int, params):
     """W3: the WP wavefront with the MA-tree walk in the step (W2's tree
     mode): per pixel, properties 0-15 pick a leaf of `tree_key` (tuples
     (prop, value, left, right, predictor, offset, multiplier), leaves prop <
     0), whose predictor, multiplier and offset apply to the RAW residual;
-    `cidx` the channel index, `sidx` the lanes' stream indices (L,).
-    Returns (planes, overflow flag (L,) bool)."""
+    `cidx` the channel index, one for every plane or one a plane (L,);
+    `sidx` the planes' stream indices (L,).  Returns (planes, overflow flag
+    (L,) bool)."""
     L = _planes("res", res, height, width)
     sidx_t = DE._long(sidx, res.device).to(torch.int32).contiguous()
-    if tuple(sidx_t.shape) != (L,):
-        raise ValueError(f"sidx: want ({L},), got {tuple(sidx_t.shape)}")
+    cidx_t = DE._long(cidx, res.device).to(torch.int32).expand(L).contiguous()
+    for name, t in (("sidx", sidx_t), ("cidx", cidx_t)):
+        if tuple(t.shape) != (L,):
+            raise ValueError(f"{name}: want ({L},), got {tuple(t.shape)}")
     key = tuple(map(tuple, tree_key))
     depth = _tree_meta(key)[1]
     if not K._on_cuda(res, sidx_t):
-        return DE._tree_wp_reconstruct(res, height, width, params, tree_key, cidx, sidx)
+        # the plain version takes one channel index: a call a channel
+        out, ovf = torch.empty_like(res), torch.empty(L, dtype=torch.bool)
+        for c in torch.unique(cidx_t).tolist():
+            at = torch.nonzero(cidx_t == c)[:, 0]
+            out[at], ovf[at] = DE._tree_wp_reconstruct(res[at], height, width, params,
+                                                       tree_key, c, sidx_t[at])
+        return out, ovf
     return _launch_wp("wavefront_tree", res, None, _device_tree(key, res.device), depth,
-                      int(cidx), sidx_t, height, width, params)
+                      cidx_t, sidx_t, height, width, params)

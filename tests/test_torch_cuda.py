@@ -449,11 +449,15 @@ def test_modular_device_route_on_card_vs_cpu(cuda, name):
     """Decoder(backend="device") on a Modular stream: the token kernel and
     the wavefront kernels on the card give device="cpu"'s RGBA and the
     host plan's, bit for bit, with every eligible section on the card and
-    one wavefront launch a (class, slot) plane batch that the route sends
-    to a wavefront (`wavefronts`; a static tree's slot whose predictor is
-    0, 1 or 2 everywhere takes a cumsum)."""
+    one wavefront launch a (class, kernel): the slots of a class that share
+    a shape and a kernel go as one batch of planes (`wavefronts`, against
+    `reconstructions`, one a (class, slot); a static tree's slot whose
+    predictor is 0, 1 or 2 everywhere takes a cumsum)."""
+    from test_torch_modular_fused import _counts
+
     data = _modular(name)
     lanes = sum(len(b) for b in _lane_batches(data))
+    recon, launches = _counts(data)
     _, host = _decode_rgba(data, backend="numpy")
     for dev in ("cuda", "cpu"):
         K.reset_launches()
@@ -462,20 +466,23 @@ def test_modular_device_route_on_card_vs_cpu(cuda, name):
         dm = dec.stats["device_modular"]
         assert dm.get("lanes", 0) + dm.get("ctx_lanes", 0) + dm.get("ntree_lanes", 0) == lanes
         waves = sum(K.launches[k] for k in WAVEFRONTS)
-        assert 0 < dm["wavefronts"] <= dm["reconstructions"]
+        assert (dm["reconstructions"], dm["wavefronts"]) == (recon, launches)
+        assert 0 < launches < recon
         assert waves == (dm["wavefronts"] if dev == "cuda" else 0)
         if not name.startswith("static"):
-            assert dm["wavefronts"] == dm["reconstructions"]
+            assert 3 * dm["wavefronts"] == dm["reconstructions"]
         np.testing.assert_array_equal(rgba, host)
 
 
 # ------------------------------------------------ the wavefronts (W1-W3)
 
 #: (L, H, W): the design test's shapes (tests/test_torch_wavefront_design.py),
-#: planes taller than a CTA's threads (W1 1024, W2 512: each thread walks
-#: 2 rows), and the main path's 16 lanes of 256x256
+#: planes taller than a CTA's rows (W1 1024, W1 with codes and W2 512: a
+#: warp walks 2 or 3 bands), a Modular group of 1024 rows, odd widths, the
+#: main path's 16 lanes of 256x256 and the fused launch's 48 (3 slots of
+#: 16 lanes)
 WF_SHAPES = [(3, 13, 17), (2, 1, 9), (2, 7, 1), (2, 9, 2), (2, 70, 6), (2, 1100, 3),
-             (2, 600, 4), (16, 256, 256)]
+             (2, 600, 4), (1, 1024, 1024), (3, 77, 255), (16, 256, 256), (48, 256, 256)]
 
 
 def _wf_case(L, H, W, seed=0):
@@ -535,7 +542,7 @@ def test_wavefront_w2_vs_plain(cuda, params, mode, L, H, W):
 def _big_tree(branches: int, seed: int):
     """A complete binary tree of `branches` branches over properties 0-15,
     leaves with codes 0-13, offsets and multipliers: 2 * branches + 1
-    nodes of 56 bytes (6001 nodes: more than shared memory holds)."""
+    nodes."""
     rng = np.random.default_rng(seed)
     return tuple(
         (int(rng.integers(0, 16)), int(rng.integers(-20, 20)), 2 * i + 1, 2 * i + 2, 0, 0, 0)
@@ -547,10 +554,10 @@ def _big_tree(branches: int, seed: int):
 
 @pytest.mark.parametrize("tree", ["e3", "offsets", "deep", "big"])
 @pytest.mark.parametrize("L,H,W", [WF_SHAPES[0], WF_SHAPES[1], WF_SHAPES[3], WF_SHAPES[6],
-                                   WF_SHAPES[-1]])
+                                   WF_SHAPES[8], WF_SHAPES[-2], WF_SHAPES[-1]])
 def test_wavefront_w3_vs_plain(cuda, tree, L, H, W):
     """W3 (tree_wavefront): the MA-tree walk in the step, on the design
-    test's trees and a 6001-node tree read from global memory."""
+    test's trees and a 6001-node tree (96 KB of shared memory)."""
     from test_torch_wavefront_design import PARAMS, TREES
 
     from j40_tpu_torch.ops import wavefront_kernels as WK
@@ -559,9 +566,10 @@ def test_wavefront_w3_vs_plain(cuda, tree, L, H, W):
     key = _big_tree(3000, 5) if tree == "big" else TREES[tree]
     p = PARAMS["custom" if tree == "offsets" else "default"]
     sidx = torch.arange(30, 30 + L, dtype=torch.int32)
+    cidx = torch.arange(L, dtype=torch.int32) % 3  # a channel a plane, as the route sends
     K.reset_launches()
-    got = WK.tree_wavefront(res.to(cuda), key, W % 3, sidx.to(cuda), H, W, p)
-    _same_wf(got, WK.tree_wavefront(res, key, W % 3, sidx, H, W, p), "wavefront_tree")
+    got = WK.tree_wavefront(res.to(cuda), key, cidx.to(cuda), sidx.to(cuda), H, W, p)
+    _same_wf(got, WK.tree_wavefront(res, key, cidx, sidx, H, W, p), "wavefront_tree")
 
 
 @pytest.mark.parametrize("mode", ["wp", "codes", "tree"])
@@ -596,8 +604,10 @@ def test_wavefront_overflow_flags(cuda, mode):
 
 
 def test_wavefront_wrappers_refuse(cuda):
-    """A mix of devices, a wrong dtype and a tree the kernel cannot walk
-    raise; nothing falls back to the torch ops."""
+    """A mix of devices, a wrong dtype, a tree the kernel cannot walk and a
+    tree larger than shared memory raise; nothing falls back to the torch
+    ops.  A tree of as many nodes as the library reports it holds runs and
+    equals the plain version."""
     from test_torch_wavefront_design import PARAMS
 
     from j40_tpu_torch.ops import wavefront_kernels as WK
@@ -611,38 +621,65 @@ def test_wavefront_wrappers_refuse(cuda):
         WK.tree_wavefront(res.to(cuda), ((16, 0, 1, 2, 0, 0, 0), (-1, 0, 0, 0, 5, 0, 1),
                                          (-1, 0, 0, 0, 1, 0, 1)), 0, [0, 1], 9, 11,
                           PARAMS["default"])
+    most = WK.limits()["tree_nodes"]
+    big = _big_tree(most // 2, 7)
+    assert len(big) > most
+    K.reset_launches()
+    with pytest.raises(ValueError, match="shared memory"):
+        WK.tree_wavefront(res.to(cuda), big, 0, [0, 1], 9, 11, PARAMS["default"])
+    assert K.launches["wavefront_tree"] == 0
+    full = _big_tree((most - 1) // 2, 7)
+    assert len(full) in (most - 1, most)
+    sidx = torch.tensor([0, 1], dtype=torch.int32)
+    got = WK.tree_wavefront(res.to(cuda), full, 0, sidx.to(cuda), 9, 11, PARAMS["default"])
+    _same_wf(got, WK.tree_wavefront(res, full, 0, sidx, 9, 11, PARAMS["default"]),
+             "wavefront_tree")
 
 
-@pytest.mark.parametrize("kernel", ["plain", "wp", "codes", "tree"])
+@pytest.mark.parametrize("kernel", ["plain", "mixed", "wp", "codes", "tree"])
 def test_wavefront_planes_at_the_ring_limit(cuda, kernel):
-    """A plane as tall as a CTA's ring in shared memory holds runs and equals
-    the plain version; one row more is refused with ValueError, before
-    any launch (a Modular group is at most 1024 rows)."""
+    """A plane taller than a CTA's rows (a warp walks two bands) as wide as
+    its hand-off rings keep deadlock-free runs and equals the plain
+    version; one column more is refused with ValueError, before any launch
+    (a Modular group is at most 1024 on a side).  The library's limits are
+    the design test's model: its rows a CTA, chunks and rings, and the
+    widths its model of the hand-off shows deadlock-free."""
+    import test_torch_wavefront_design as D
     from test_torch_wavefront_design import PARAMS, TREES
 
     from j40_tpu_torch.ops import wavefront_kernels as WK
 
-    most = WK.MAX_ROWS_PLAIN if kernel == "plain" else WK.MAX_ROWS_WP
+    lim = WK.limits()
+    model = dict(
+        plain_chunk=D.PLAIN_CHUNK, plain_ring=D.PLAIN_RING, wp_chunk=D.WP_CHUNK,
+        wp_ring=D.WP_RING, **{f"threads_{t}": n for t, n in D.THREADS.items()},
+        **{f"tall_width_{t}": D.tall_width_limit(1, 0, D.THREADS[t] // 32, D.PLAIN_RING,
+                                                 D.PLAIN_CHUNK) for t in ("plain", "mixed")},
+        tall_width_wp=D.tall_width_limit(2, 1, D.THREADS["wp"] // 32, D.WP_RING, D.WP_CHUNK))
+    assert {k: lim[k] for k in model} == model
+    kind = {"plain": "plain", "mixed": "mixed"}.get(kernel, "wp")
+    rows, most = lim[f"threads_{kind}"], lim[f"tall_width_{kind}"]
     p = PARAMS["default"]
+    H = rows + 1
 
-    def call(res, H):
-        codes = torch.from_numpy(np.random.default_rng(H).integers(
-            0, 13, size=(1, H, 1)).astype(np.int32)).to(res.device)
-        if kernel == "plain":
-            return WK.plain_wavefront(res, None, H, 1)
+    def call(res, W):
+        codes = torch.from_numpy(np.random.default_rng(W).integers(
+            0, 13, size=(1, H, W)).astype(np.int32)).to(res.device)
+        if kernel in ("plain", "mixed"):
+            return WK.plain_wavefront(res, codes if kernel == "mixed" else None, H, W)
         if kernel == "tree":
             sidx = torch.zeros(1, dtype=torch.int32, device=res.device)
-            return WK.tree_wavefront(res, TREES["e3"], 0, sidx, H, 1, p)
-        return WK.wp_wavefront(res, codes if kernel == "codes" else None, H, 1, p)
+            return WK.tree_wavefront(res, TREES["e3"], 0, sidx, H, W, p)
+        return WK.wp_wavefront(res, codes if kernel == "codes" else None, H, W, p)
 
-    res, _ = _wf_case(1, most, 1, 4)
-    name = {"plain": "wavefront", "wp": "wavefront_wp", "codes": "wavefront_wp_codes",
-            "tree": "wavefront_tree"}[kernel]
+    res, _ = _wf_case(1, H, most, 4)
+    name = {"plain": "wavefront", "mixed": "wavefront_mixed", "wp": "wavefront_wp",
+            "codes": "wavefront_wp_codes", "tree": "wavefront_tree"}[kernel]
     K.reset_launches()
     _same_wf(call(res.to(cuda), most), call(res, most), name)
     K.reset_launches()
-    with pytest.raises(ValueError, match="rows"):
-        call(torch.zeros((1, most + 1, 1), dtype=torch.int32, device=cuda), most + 1)
+    with pytest.raises(ValueError, match="deadlock-free"):
+        call(torch.zeros((1, H, most + 1), dtype=torch.int32, device=cuda), most + 1)
     assert K.launches[name] == 0
 
 

@@ -2,9 +2,10 @@
 checkout's library and from one built out of another copy of
 `j40_tpu_torch/csrc/`.
 
-    python3 tools/torch_kernel_ab.py OTHER_CSRC_DIR[,OTHER2,...] [PAIRS] [CASE]
+    python3 tools/torch_kernel_ab.py OTHER_CSRC_DIR[,OTHER2,...]|- [PAIRS] [CASE] [--sass]
 
-CASE is one of chip_smoke.py's inputs: hf_ans_2048 (the default; B4's
+OTHER_CSRC_DIR "-" times this checkout's library alone.  CASE is one of
+chip_smoke.py's inputs, or a wavefront kernel (below): hf_ans_2048 (the default; B4's
 rANS walk of the single-cluster stream's lanes), hf_ctx_2048 (B5, the
 5-cluster stream), epf_fused_12f (B8's 3 steps on config 12F's first
 2048x2048 LF group), dct8_srgb_c3 (B1 on config 3's LF group, u8),
@@ -25,14 +26,30 @@ the final rANS state 0x130000; B8 stays within chip_smoke.XYB_ATOL of its
 plain version, B1 and B3 within 1 level and B2 within 1e-4 of theirs
 (chip_smoke's bars).  A copy whose DCT8 entry points take the dense 64x64
 operator (`kmat`, the sources before the separable kernel) is called
-through that interface.  Prints one JSON line: per library the median ms
-(and for an HF walk ns per symbol of the longest lane), and for each
-other library the median of the per-round ratios to A.
+through that interface.  The wavefront cases wavefront_grad,
+wavefront_mixed, wavefront_wp, wavefront_wp_codes and wavefront_tree (W1
+gradient and codes, W2 WP and codes, W3 the e3 tree) run the kernel on
+random residuals made from a seed: 48 planes of 256x256, the Modular
+route's one launch for a class's three slots, or with the suffix `_band`
+16 planes of 32x256, one warp a plane, so that the time is the chain of
+one warp's steps with no hand-off between warps; 20 calls queued as for
+B1; each library equal to the plain version (the torch-op loop on the
+card) in planes and flags; per library ns a step (a diagonal of the
+plane, or a step of the band's warp).  A copy must take this checkout's
+wavefront interface (the W1 and W2 entries have not changed since PR 11;
+W3's tree layout has).  `--sass` adds the instructions of one step of
+each wavefront kernel instance, read from this checkout's SASS (`nvcc
+-cubin`, `cuobjdump -sass`: the distance between a step's shuffle groups,
+the median over the unrolled steps).  Prints one JSON line: per library
+the median ms (and for an HF walk ns per symbol of the longest lane),
+and for each other library the median of the per-round ratios to A.
 """
 
 import ctypes
 import json
+import re
 import statistics
+import subprocess
 import sys
 from pathlib import Path
 
@@ -55,7 +72,7 @@ def other_library(csrc: Path, ref, subdir: str = "ab_other"):
         _build.SOURCES, _build.HEADERS, _build.BUILD_DIR = saved
     lib = ctypes.CDLL(str(path))
     for name, fn in ref.__dict__.items():
-        if hasattr(fn, "argtypes"):
+        if hasattr(fn, "argtypes") and hasattr(lib, name):
             g = getattr(lib, name)
             g.argtypes, g.restype = fn.argtypes, fn.restype
     # DCT8 entry points of the dense 64x64 operator: a device pointer to
@@ -208,6 +225,89 @@ def xyb_case(dev):
     return call, check, dict(shape=list(plane.shape), reps=20, queued=True)
 
 
+#: the wavefront cases: (wrapper, codes) a kernel instance
+WAVEFRONTS = {"wavefront_grad": ("plain", False), "wavefront_mixed": ("plain", True),
+              "wavefront_wp": ("wp", False), "wavefront_wp_codes": ("wp", True),
+              "wavefront_tree": ("tree", False)}
+#: the e3 encoder's tree (chip_smoke.py's modular_e3 streams)
+E3_TREE = ((15, 0, 1, 2, 0, 0, 0), (-1, 0, 0, 0, 6, 0, 1), (-1, 0, 0, 0, 5, 0, 1))
+
+
+def wavefront_case(name: str, dev):
+    """A wavefront kernel on random residuals: 48 planes of 256x256, or 16
+    of one 32-row band (`_band`), through its wrapper; checked equal to
+    the plain version on the card."""
+    import numpy as np
+    import torch
+
+    from j40_tpu_torch.modular.wp import WPParams
+    from j40_tpu_torch.ops import device_entropy as DE
+    from j40_tpu_torch.ops import wavefront_kernels as WK
+
+    band = name.endswith("_band")
+    kind, with_codes = WAVEFRONTS[name.removesuffix("_band")]
+    L, h, w = (16, 32, 256) if band else (48, 256, 256)
+    rng = np.random.default_rng(h)
+    res = torch.from_numpy(rng.integers(-30, 31, size=(L, h, w)).astype(np.int32)).to(dev)
+    codes = (torch.from_numpy(rng.choice([0, 1, 2, 5, 6, 7, 12], size=(L, h, w))
+                              .astype(np.int32)).to(dev) if with_codes else None)
+    sidx = torch.arange(30, 30 + L, dtype=torch.int32, device=dev)
+    cidx = (torch.arange(L, dtype=torch.int32, device=dev) * 3) // L
+    p = WPParams()
+    WK.limits()  # read from this checkout's library, before any other is bound
+    k = 1 if kind == "plain" else 2
+    # a plane's diagonals, or the steps of the band's one warp
+    steps = 31 * k + w + k - 1 if band else k * h + w - k
+    if kind == "plain":
+        def call():
+            return (WK.plain_wavefront(res, codes, h, w),)
+        ref = (DE._plain_wavefront(res, codes, h, w),)
+    elif kind == "wp":
+        def call():
+            return WK.wp_wavefront(res, codes, h, w, p)
+        ref = DE._wp_reconstruct(res, codes, h, w, p, codes is not None)
+    else:
+        def call():
+            return WK.tree_wavefront(res, E3_TREE, cidx, sidx, h, w, p)
+        ref = tuple(torch.cat(t) for t in zip(*(
+            DE._tree_wp_reconstruct(res[cidx == c], h, w, p, E3_TREE, c, sidx[cidx == c])
+            for c in range(3))))
+
+    def check() -> None:
+        assert all(torch.equal(a, b) for a, b in zip(call(), ref)), name
+
+    return call, check, dict(shape=[L, h, w], reps=20, queued=True, unit=steps,
+                             unit_key="ns_per_step")
+
+
+def wavefront_step_instructions() -> dict:
+    """Instructions between consecutive shuffle groups of this checkout's
+    wavefront.cu, per kernel instance (the median over its unrolled
+    steps)."""
+    from j40_tpu_torch.ops import _build
+
+    out_dir = REPO / "build" / "ab_sass"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cubin = out_dir / "wavefront.cubin"
+    subprocess.run([_build.nvcc_path(), *_build.ARCH, "-std=c++17", "-O3", "-cubin", "-o",
+                    str(cubin), str(REPO / "j40_tpu_torch" / "csrc" / "wavefront.cu")],
+                   check=True)
+    sass = subprocess.run(["cuobjdump", "-sass", str(cubin)], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for fn, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S):
+        ins = [ln for ln in body.splitlines() if re.match(r"\s+/\*[0-9a-f]{4}\*/", ln)]
+        shfl = [k for k, ln in enumerate(ins) if "SHFL.UP PT" in ln]
+        # a step's shuffles are adjacent; the first of each group marks it
+        starts = [k for j, k in enumerate(shfl) if j == 0 or k - shfl[j - 1] > 8]
+        gaps = [b - a for a, b in zip(starts, starts[1:])]
+        kind = ("W2 " + {"0": "wp", "1": "wp_codes", "2": "tree"}[m.group(1)]
+                if (m := re.search(r"wp_wavefront_kernelILi(\d)", fn)) else
+                "W1 " + ("mixed" if "ILb1" in fn else "gradient"))
+        out[kind] = statistics.median(gaps) if gaps else None
+    return out
+
+
 def queued_ms(fn, reps: int, before=None) -> float:
     """Device time per call of `fn`: CUDA events right around each of `reps`
     calls (each after `before()` if given, which stays outside the pair),
@@ -240,15 +340,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
         return 2
-    pairs = int(sys.argv[2]) if len(sys.argv) > 2 else 20
-    case = sys.argv[3] if len(sys.argv) > 3 else "hf_ans_2048"
+    sass = "--sass" in sys.argv
+    argv = [a for a in sys.argv if a != "--sass"]
+    pairs = int(argv[2]) if len(argv) > 2 else 20
+    case = argv[3] if len(argv) > 3 else "hf_ans_2048"
     dev = torch.device("cuda", torch.cuda.current_device())
     libs = {"A": _build.load_kernels()}
-    others = sys.argv[1].split(",")
+    others = [] if argv[1] == "-" else argv[1].split(",")
     for j, other in enumerate(others):
         name = "B" if len(others) == 1 else f"B{j + 1}"
         libs[name] = other_library(Path(other).resolve(), libs["A"], f"ab_other{j}")
-    if case == "epf_fused_12f":
+    if case.removesuffix("_band") in WAVEFRONTS:
+        call, check, info = wavefront_case(case, dev)
+    elif case == "epf_fused_12f":
         call, check, info = epf_case(dev)
     elif case == "xyb_srgb_c4":
         call, check, info = xyb_case(dev)
@@ -276,12 +380,15 @@ def main() -> int:
                 times[k].append(ms)
     _build._lib = libs["A"]
     unit = info.pop("unit", None)
+    unit_key = info.pop("unit_key", "ns_per_symbol")
+    if sass:
+        info["step_instructions"] = wavefront_step_instructions()
     print(json.dumps({
         "case": case, **info, "timer": "queued CUDA events, median" if queued else "CUDA events",
         "pairs": pairs, "card": torch.cuda.get_device_name(dev),
         "others": dict(zip(keys[1:], others)),
         **{k: {"ms": statistics.median(v), "ms_min": min(v), "ms_max": max(v),
-               **({"ns_per_symbol": statistics.median(v) * 1e6 / unit} if unit else {})}
+               **({unit_key: statistics.median(v) * 1e6 / unit} if unit else {})}
            for k, v in times.items()},
         **{f"ratio_{k.lower()}_over_a": statistics.median(
             b / a for a, b in zip(times["A"], times[k])) for k in keys[1:]}}))
