@@ -79,8 +79,10 @@ which raises on failure (the script then exits non-zero):
    (2, 4) mesh; a 1024x1024 Squeeze+RCT lossless stream and bench.py's
    shent_1024 (per-shard entropy, B6 and W1 once a shard), bit-exact with
    the host plan; dryrun_multichip(8).  Mpix/s beside the single-device decode
-   of the same stream; B7's and B9's rows entries on a shard stripe of
-   config 12F and B6 on one shard's lanes as kernel rows;
+   of the same stream; B9's rows entry and B7's for each step kind (12-tap,
+   4-tap cross, 4-tap plain: each kind's launches of the counted decode)
+   on shard 1's stripes of config 12F, and B6 on one shard's lanes, as
+   kernel rows;
 6. profile: one warm decode of configs 3, 4 and 12F under torch.profiler
    (device busy time and idle share) and cProfile (host time by function),
    one each of config 4 and hf_ctx_2048 under `backend="device"`, and one
@@ -104,6 +106,7 @@ Details go to build/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -691,7 +694,8 @@ def phase_filter_kernels(inp: dict, dev) -> list[dict]:
     """The filter kernels vs their plain versions at the main path's shapes:
     B9 on config 12F's first 2048x2048 LF group's XYB plane, B8 (its 3
     steps, the group's own sigmas) on B9's output, B7 through epf_device on
-    the ragged plane (three launches, one per step).  Tolerances: 1e-5
+    the ragged plane (three launches, one per step; each launch also timed
+    alone on its own input, with its own bound).  Tolerances: 1e-5
     absolute on the XYB planes, whose samples are of order 1 or less (X
     about 0.03: a wrong X channel must not pass), fp32 sums in another
     order giving about 3e-7; 2e-3 absolute on the ragged plane's samples of
@@ -759,9 +763,25 @@ def phase_filter_kernels(inp: dict, dev) -> list[dict]:
     err = (got - ragged_ref(ch, rs8)).abs().max().item()
     assert err <= 2e-3, f"epf_step disagrees: {err}"
     _, H, W = ch.shape
-    kinds = [k for _, k in FK.frame_steps(3, 0.9, 6.5)]
-    b = bound(2 * ch.numel() * 4 + rs8.numel() * 4,
-              epf_ops(active_pixels(rs8, H, W), kinds))
+    act = active_pixels(rs8, H, W)
+    steps = FK.frame_steps(RAGGED_EPF["iters"], RAGGED_EPF["p0_scale"],
+                           RAGGED_EPF["p2_scale"])
+    kinds = [k for _, k in steps]
+    b = bound(2 * ch.numel() * 4 + rs8.numel() * 4, epf_ops(act, kinds))
+    # each launch of the chain on its own input, with a bound of its own
+    # (one pass over the plane, its step's operations)
+    per_launch, x = [], ch
+    for ss, kind in steps:
+        args = (x, rs8, ss, kind, RAGGED_EPF["channel_scale"], RAGGED_EPF["border_sad_mul"])
+        y = FK.epf_step(*args)
+        e1 = (y - FK.epf_step_ref(*args)).abs().max().item()
+        assert e1 <= 2e-3, f"epf_step kind {kind} disagrees: {e1}"
+        t = row_times(lambda a=args: FK.epf_step(*a), lambda a=args: FK.epf_step_ref(*a))
+        b1 = bound(2 * x.numel() * 4 + rs8.numel() * 4, epf_ops(act, [kind]))
+        per_launch.append(dict(kind=kind, ms=t["ms"], plain_ms=t["plain_ms"],
+                               timer=t["timer"], ns_per_pixel=t["ms"] * 1e6 / (H * W),
+                               bound_ms=b1[0], bound_by=b1[1], max_abs_err=e1))
+        x = y
     rows.append(dict(
         name="epf_step", route="cuda", source="j40_tpu_torch/csrc/filters.cu",
         replaces="j40_tpu/ops/pallas_filters.py:82",
@@ -769,9 +789,13 @@ def phase_filter_kernels(inp: dict, dev) -> list[dict]:
         max_abs_err=err,
         **row_times(lambda: FK.epf_device(ch, rs8, **RAGGED_EPF),
                     lambda: ragged_ref(ch, rs8)),
-        bound_ms=b[0], bound_by=b[1], library=None,
+        bound_ms=b[0], bound_by=b[1], library=None, per_launch=per_launch,
     ))
     _print_rows(rows)
+    for p in per_launch:
+        print(f"  epf_step kind {p['kind']}: {p['ms']:.4f} ms ({p['timer']}), "
+              f"{p['ns_per_pixel']:.5f} ns a pixel, bound {p['bound_ms']:.4f} ms, "
+              f"max|err| {p['max_abs_err']}")
     return rows
 
 
@@ -1594,6 +1618,30 @@ def lf_border_distance(h: int, w: int, group: int = 2048) -> np.ndarray:
     return np.minimum(dist(h)[:, None], dist(w)[None, :])
 
 
+@contextlib.contextmanager
+def keep_rows_calls():
+    """For the time of the block, FK.gaborish_rows and FK.epf_step_rows keep
+    each call's arguments: yields {"gab": [...], "epf": [...]}, in call
+    order (a sharded decode runs the EPF steps one after another, each on
+    shard 0, 1, ...; so on 8 shards call 8 k + 1 is step k of shard 1)."""
+    from j40_tpu_torch.ops import filter_kernels as FK
+
+    captured: dict[str, list] = {"gab": [], "epf": []}
+
+    def keep(fn, name):
+        def wrapper(*args):
+            captured[name].append(args)
+            return fn(*args)
+        return wrapper
+
+    orig = FK.gaborish_rows, FK.epf_step_rows
+    FK.gaborish_rows, FK.epf_step_rows = keep(orig[0], "gab"), keep(orig[1], "epf")
+    try:
+        yield captured
+    finally:
+        FK.gaborish_rows, FK.epf_step_rows = orig
+
+
 def sharded_record(path: str, run, want: dict, reps: int, single) -> tuple[dict, object]:
     """One multi-device path: the launch counters zeroed just before a
     first (checked) call of `run` and read just after, which must equal
@@ -1659,25 +1707,19 @@ def phase_sharded(streams: dict, dev) -> tuple[list[dict], list[dict], dict]:
     # once a shard; the stripes of shard 1 are kept for the kernel rows
     data = streams["config12f"]
     _, single = _decode(data, "torch", filters=True)
-    captured = {}
-
-    def keep(fn, name):
-        def wrapper(*args):
-            captured.setdefault(name, []).append(args)
-            return fn(*args)
-        return wrapper
-
-    orig = FK.gaborish_rows, FK.epf_step_rows
-    FK.gaborish_rows, FK.epf_step_rows = keep(orig[0], "gab"), keep(orig[1], "epf")
-    try:
+    with keep_rows_calls() as captured:
         rec, out = sharded_record(
             "config12f/sharded8+filters",
             lambda: SD.decode_sharded(data, mesh=mesh8, apply_filters=True),
             {"reconstruct_dct8": 8, "gaborish_rows": 8, "epf_step_rows": 24,
              "xyb_to_srgb": 8}, 3, lambda: _decode(data, "torch", filters=True))
-        gab_args, epf_args = captured["gab"][1], captured["epf"][1]
-    finally:
-        FK.gaborish_rows, FK.epf_step_rows = orig
+    gab_args = captured["gab"][1]
+    # the first (counted) call's 24 EPF launches: each step kind's count,
+    # and its launch on shard 1
+    first = captured["epf"][:rec["launches"]["epf_step_rows"]]
+    kind_calls = {k: sum(a[3] == k for a in first) for k in range(3)}
+    epf_by_kind = [first[SHARDS * k + 1] for k in range(3)]
+    assert [a[3] for a in epf_by_kind] == [0, 1, 2], [a[3] for a in epf_by_kind]
     one = SD.decode_sharded(data, mesh=mesh_of(dev, 1), apply_filters=True)
     one_diff = int(np.abs(out.astype(np.int16) - one).max())
     assert one_diff <= 1, f"config12f: 8 shards against 1 shard: {one_diff}"
@@ -1795,23 +1837,25 @@ def phase_sharded(streams: dict, dev) -> tuple[list[dict], list[dict], dict]:
         bound_ms=b[0], bound_by=b[1],
         library="F.conv2d depthwise 3x3 on a column-replicate pad (TF32 off)",
     ))
-    stripe, rs8, _, kind = epf_args[:4]
-    got = FK.epf_step_rows(*epf_args)
-    err = (got - FK.epf_step_rows_ref(*epf_args)).abs().max().item()
-    assert err <= XYB_ATOL, f"epf_step_rows disagrees: {err}"
-    _, H, W = got.shape
-    b = bound((stripe.numel() + got.numel() + rs8.numel()) * 4,
-              epf_ops(active_pixels(rs8, H, W), [kind]))
-    rows.append(dict(
-        name="epf_step_rows", counter="epf_step_rows", route="cuda",
-        source="j40_tpu_torch/csrc/filters.cu",
-        replaces="j40_tpu/ops/pallas_filters.py:82 (via epf_step_pallas_rows, :274)",
-        shape=f"{tuple(stripe.shape)} f32 stripe of shard 1 of config 12F -> "
-              f"{tuple(got.shape)}, step kind {kind}", max_abs_err=err,
-        **row_times(lambda: FK.epf_step_rows(*epf_args),
-                    lambda: FK.epf_step_rows_ref(*epf_args)),
-        bound_ms=b[0], bound_by=b[1], library=None,
-    ))
+    for epf_args in epf_by_kind:
+        stripe, rs8, _, kind = epf_args[:4]
+        got = FK.epf_step_rows(*epf_args)
+        err = (got - FK.epf_step_rows_ref(*epf_args)).abs().max().item()
+        assert err <= XYB_ATOL, f"epf_step_rows kind {kind} disagrees: {err}"
+        _, H, W = got.shape
+        b = bound((stripe.numel() + got.numel() + rs8.numel()) * 4,
+                  epf_ops(active_pixels(rs8, H, W), [kind]))
+        t = row_times(lambda a=epf_args: FK.epf_step_rows(*a),
+                      lambda a=epf_args: FK.epf_step_rows_ref(*a))
+        rows.append(dict(
+            name=f"epf_step_rows_k{kind}", counter="epf_step_rows", route="cuda",
+            source="j40_tpu_torch/csrc/filters.cu",
+            replaces="j40_tpu/ops/pallas_filters.py:82 (via epf_step_pallas_rows, :274)",
+            shape=f"{tuple(stripe.shape)} f32 stripe of shard 1 of config 12F -> "
+                  f"{tuple(got.shape)}, step kind {kind}", max_abs_err=err,
+            **t, ns_per_pixel=t["ms"] * 1e6 / (H * W), kind_calls=kind_calls[kind],
+            bound_ms=b[0], bound_by=b[1], library=None,
+        ))
     _print_rows(rows)
     # B6 on one shard's lanes of shent_1024 (8 sections of 49,152 symbols)
     per = -(-len(lanes) // SHARDS)
@@ -1819,7 +1863,7 @@ def phase_sharded(streams: dict, dev) -> tuple[list[dict], list[dict], dict]:
     tok["paths"] = ["shent_1024/sharded8"]
     rows.append(tok)
     paths = [r["path"] for r in records]
-    for r in rows[:2]:
+    for r in rows[:4]:
         r["paths"] = paths
     return records, rows, dry
 
@@ -2386,6 +2430,9 @@ def main() -> int:
         r["launches"] = sum(m["launches"][r.get("counter", r["name"])] for m in mains + sharded
                             if (m.get("path") in paths if paths is not None
                                 else m.get("path") not in other))
+        if "kind_calls" in r:  # B7 rows: the calls of its step kind among them
+            assert 0 < r["kind_calls"] <= r["launches"], (r["name"], r["launches"])
+            r["launches"] = r.pop("kind_calls")
         assert r["launches"] > 0, f"{r['name']} never launched on the main path"
         assert r.get("timer"), f"{r['name']} names no timer"
         if "diagonals" in r:  # a wavefront row: its launches stream by stream
@@ -2421,7 +2468,8 @@ def main() -> int:
     # statistics, their rates and the time between CUDA events around the
     # call; the batch rows the paths whose launches they count
     extra = ("timer", "plain_timer", "ns_per_symbol", "symbols_per_s", "design", "sync",
-             "ms_events", "paths", "diagonals", "ns_per_diagonal", "launches_per_stream")
+             "ms_events", "paths", "diagonals", "ns_per_diagonal", "launches_per_stream",
+             "ns_per_pixel", "per_launch")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in kernels]}))
     print(card["nvidia_smi"])

@@ -140,16 +140,33 @@ CS = (40.0, 5.0, 3.5)
 GAB_W = ((0.115, 0.061), (0.1, 0.05), (0.12, 0.06))
 
 
+def _skipped_blocks(rs8: np.ndarray) -> torch.Tensor:
+    """The block sigmas with the middle block skipped and, where the table
+    holds it, block (3, 7) too: its rows 24-31 hold the edge between B7's
+    first two walks down a strip (after 25, 27 or 29 rows by step kind), its
+    columns 56-63 the edge between the first two 60-column strips."""
+    rs8.flat[rs8.size // 2] = -1.0
+    if rs8.shape[0] > 3 and rs8.shape[1] > 7:
+        rs8[3, 7] = -1.0
+    return torch.from_numpy(rs8)
+
+
+# B7 walks 60-column strips (64 with the halo), 25-29 rows a warp: planes
+# smaller than a strip and than the halo (5x3, 9x3, 2x17, 8x2), rows that
+# are not 16-byte aligned (W = 3, 61, 113, 1021: the 4-byte copies), rows
+# that are (16-byte copies on interior strips: 256x2048, 384x4096), two
+# strips and two 12-tap walks that fill the plane exactly (50x120), and
+# walks of many warps down a tall plane (1023x1021, 384x4096)
 @pytest.mark.parametrize("h,w", [(5, 3), (37, 61), (48, 64), (16, 8), (200, 72), (1023, 1021),
-                                 (256, 2048)])
+                                 (256, 2048), (9, 3), (2, 17), (8, 2), (64, 112), (65, 113),
+                                 (130, 70), (384, 4096), (50, 120)])
 def test_filter_kernels_vs_plain(cuda, h, w):
     """B7 (each step kind), B8 (1-3 steps, 8-multiple planes) and B9 against
-    their plain versions, with one skipped block."""
+    their plain versions, with skipped blocks."""
     rng = np.random.default_rng(h * w)
     ch = torch.from_numpy(rng.normal(size=(3, h, w)).astype(np.float32) * 50)
-    rs8 = np.abs(rng.normal(size=(-(-h // 8), -(-w // 8)))).astype(np.float32) * 0.05 + 0.02
-    rs8.flat[rs8.size // 2] = -1.0
-    rs8 = torch.from_numpy(rs8)
+    rs8 = _skipped_blocks(
+        np.abs(rng.normal(size=(-(-h // 8), -(-w // 8)))).astype(np.float32) * 0.05 + 0.02)
     g, r = ch.to(cuda), rs8.to(cuda)
     K.reset_launches()
     got = FK.gaborish(g, GAB_W)
@@ -170,16 +187,16 @@ def test_filter_kernels_vs_plain(cuda, h, w):
     assert {k: K.launches[k] for k in want} == want
 
 
-@pytest.mark.parametrize("h,w", [(8, 2), (8, 3), (16, 61), (48, 64), (200, 72), (384, 4096)])
+@pytest.mark.parametrize("h,w", [(8, 2), (8, 3), (16, 61), (48, 64), (200, 72), (384, 4096),
+                                 (16, 3), (40, 29), (72, 112), (136, 1021)])
 def test_rows_filter_kernels_vs_plain(cuda, h, w):
     """B7's and B9's rows entries (a row shard's stripe with its
     neighbours' halo rows) against their plain versions, each step kind,
-    with one skipped block."""
+    with skipped blocks."""
     rng = np.random.default_rng(h + w)
     rows = torch.from_numpy(rng.normal(size=(3, h + 6, w)).astype(np.float32) * 50)
-    rs8 = np.abs(rng.normal(size=(-(-h // 8), -(-w // 8)))).astype(np.float32) * 0.05 + 0.02
-    rs8.flat[rs8.size // 2] = -1.0
-    rs8 = torch.from_numpy(rs8)
+    rs8 = _skipped_blocks(
+        np.abs(rng.normal(size=(-(-h // 8), -(-w // 8)))).astype(np.float32) * 0.05 + 0.02)
     g, r = rows.to(cuda), rs8.to(cuda)
     K.reset_launches()
     gab = rows[:, 2:-2].contiguous()

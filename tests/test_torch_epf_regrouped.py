@@ -1,7 +1,8 @@
-"""The EPF step as kernels B7 and B8 regroup it (csrc/filters.cu
-`epf_region`), modelled in PyTorch and held against the plain versions
-(`filter_kernels.epf_step_ref`, `epf_fused_ref`) and against the JAX
-package's fused EPF filter in Pallas interpret mode.
+"""The EPF step as kernels B7 and B8 regroup it (csrc/filters.cu: B7's
+column walk `epf_step_kernel`, B8's `epf_region`), modelled in PyTorch and
+held against the plain versions (`filter_kernels.epf_step_ref`,
+`epf_fused_ref`) and against the JAX package's fused EPF filter in Pallas
+interpret mode.
 
 The kernels sum each tap's distance over its 5-point cross from one
 channel-weighted difference field per distinct offset (the 12-tap step's
@@ -9,7 +10,10 @@ seven offsets as five fields V1, V2, H1, DA, DB shifted, the 4-tap cross
 step's four as V1 and H1), add a repeated tap's weight times its count, and
 multiply the weighted sums by one reciprocal of the weight sum; the plain
 versions weight each channel's cross sum, visit all twelve table entries
-and divide.  Only fp32 rounding differs.  Tolerances: 2e-3 absolute on
+and divide.  The model sums a cross in B7's order, the row's horizontal
+3-sum first and then the positions above and below, ((left + centre) +
+right) + up + down (B8 adds centre, left, up, down, right).  Only fp32
+rounding differs.  Tolerances: 2e-3 absolute on
 samples of scale 50 (as tests/test_torch_filters.py holds the Pallas EPF),
 1e-5 absolute on samples of scale 0.1 (XYB planes; chip_smoke.py's
 XYB_ATOL).
@@ -67,8 +71,9 @@ def regrouped_step(ch, rs8, sigma_scale, kind, cs=CS, bsm=BSM):
             acc = acc + at(pad, k0, k1) * w
     else:
         for o, (sy, sx), (ky, kx), m in TAPS[kind]:
-            dist = (diff((sy, sx), o) + diff((sy, sx - 1), o) + diff((sy - 1, sx), o)
-                    + diff((sy + 1, sx), o) + diff((sy, sx + 1), o))
+            # B7's order: ((left + centre) + right) + up + down
+            dist = (diff((sy, sx - 1), o) + diff((sy, sx), o) + diff((sy, sx + 1), o)
+                    + diff((sy - 1, sx), o) + diff((sy + 1, sx), o))
             w = m * torch.clamp_min(1.0 + dist * inv, 0.0)
             sw = sw + w
             acc = acc + at(pad, ky, kx) * w
@@ -99,7 +104,7 @@ def _plane(h, w, seed, scale):
 
 
 @pytest.mark.parametrize("scale,atol", [(50.0, 2e-3), (0.1, 1e-5)])
-@pytest.mark.parametrize("h,w", [(37, 61), (48, 64), (8, 16)])
+@pytest.mark.parametrize("h,w", [(37, 61), (48, 64), (8, 16), (9, 3), (2, 17), (65, 113)])
 def test_regrouped_step_vs_plain(h, w, scale, atol):
     ch, rs8 = _plane(h, w, h * w, scale)
     for kind, ss in ((0, 0.9), (1, 1.0), (2, 6.5)):

@@ -258,6 +258,26 @@ def test_rows_entries_vs_jax_rows():
     np.testing.assert_allclose(got.numpy(), ref, atol=FTOL)
 
 
+def test_rows_calls_step_by_step():
+    """chip_smoke.py's kernel rows and tools/torch_kernel_ab.py's B7 rows
+    cases take call n k + 1 of B7's rows entry as step k of shard 1: a
+    filtered decode on n shards runs the EPF steps one after another, each
+    on shards 0 .. n - 1 (chip_smoke.keep_rows_calls keeps the calls)."""
+    import chip_smoke
+
+    img = _walk((64, 96, 3), 5, mod=200, base=20, axes=(0, 1))
+    blob = encode_vardct(img, VarDCTOptions(sharpness=5, custom_restoration=True,
+                                            epf_iters=3))
+    n = 4
+    with chip_smoke.keep_rows_calls() as calls:
+        TSD.decode_sharded(blob, mesh=_mesh(n), apply_filters=True)
+    assert [a[3] for a in calls["epf"]] == [k for k in range(3) for _ in range(n)]
+    assert len(calls["gab"]) == n
+    for k in range(3):
+        assert tuple(calls["epf"][n * k + 1][0].shape) == (3, 64 // n + 6, 96)
+    assert FK.epf_step_rows.__name__ == "epf_step_rows"  # restored
+
+
 def test_sharded_gaborish():
     from j40_tpu.ops.sharded_filters import sharded_gaborish
 

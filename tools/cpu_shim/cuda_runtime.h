@@ -27,6 +27,8 @@ struct uint2 { uint32_t x, y; };
 struct uint4 { uint32_t x, y, z, w; };
 struct int2 { int x, y; };
 struct alignas(16) int4 { int x, y, z, w; };
+struct alignas(8) float2 { float x, y; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
 struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 #define __align__(n) __attribute__((aligned(n)))

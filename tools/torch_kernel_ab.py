@@ -2,13 +2,22 @@
 checkout's library and from one built out of another copy of
 `j40_tpu_torch/csrc/`.
 
-    python3 tools/torch_kernel_ab.py OTHER_CSRC_DIR[,OTHER2,...]|- [PAIRS] [CASE] [--sass]
+    python3 tools/torch_kernel_ab.py OTHER_CSRC_DIR[,OTHER2,...]|- [PAIRS] [CASE[,CASE...]] [--sass]
 
-OTHER_CSRC_DIR "-" times this checkout's library alone.  CASE is one of
+OTHER_CSRC_DIR "-" times this checkout's library alone.  Several cases,
+comma-separated, run one after another in the one process (one JSON line
+each).  CASE is one of
 chip_smoke.py's inputs, or a wavefront kernel (below): hf_ans_2048 (the default; B4's
 rANS walk of the single-cluster stream's lanes), hf_ctx_2048 (B5, the
 5-cluster stream), epf_fused_12f (B8's 3 steps on config 12F's first
-2048x2048 LF group), dct8_srgb_c3 (B1 on config 3's LF group, u8),
+2048x2048 LF group), epf_step_rows_12f_k0, _k1 and _k2 (B7's rows entry
+on the (3, 390, 4096) stripe, block sigmas and parameters of step 0, 1 or
+2 of shard 1 in config 12F's filtered decode on 8 shards, as
+chip_smoke.py captures them; within XYB_ATOL of the plain version),
+epf_step_ragged (B7's three launches on chip_smoke.py's (3, 1023, 1021)
+ragged plane through epf_device; within 2e-3 of the chain of plain
+steps; both with ns a pixel of the call and a yardstick timed in the same
+rounds: a torch copy of the same bytes, no arithmetic), dct8_srgb_c3 (B1 on config 3's LF group, u8),
 dct8_xyb_c4 (B2 on config 4's first mixed 2048x2048 LF group),
 dct8_xyb_c4_cold (the same with the L2 cold: a 128 MB scratch buffer is
 written before every call) or xyb_srgb_c4 (B3 to u8 on B2's output
@@ -17,7 +26,7 @@ one process (as tools/ab_native.py does for the host core) and take turns
 on the same inputs, the order reversed every round (with several other
 copies, each is a library B1, B2, ... in the same rounds): an HF walk is
 one uncapped call between CUDA events a turn, B8 20 calls between CUDA
-events, B1, B2 and B3 20 calls queued behind a sleep kernel, each
+events, B7, B1, B2 and B3 20 calls queued behind a sleep kernel, each
 between its own CUDA events (the median of a turn): these kernels take
 less time than the wrapper's launch path, so events around calls that
 the host has not queued ahead would time the host.  Each library must first pass the case's check: an HF
@@ -125,7 +134,7 @@ def epf_case(dev):
     from j40_tpu_torch.ops import filter_kernels as FK
     from j40_tpu_torch.ops.combine import _mixed_xyb, to_device
 
-    g = next(g for g in CS.group_inputs(CS.config12f(), apply_filters=True)
+    g = next(g for g in CS.group_inputs(config12f(), apply_filters=True)
              if g["h8"] * g["w8"] == 65536)
     t = to_device(g, dev)
     filt, epf = t["filters"], t["filters"]["epf"]
@@ -140,6 +149,71 @@ def epf_case(dev):
         assert (FK.epf_fused(*args) - ref).abs().max().item() <= CS.XYB_ATOL
 
     return (lambda: FK.epf_fused(*args)), check, dict(shape=list(plane.shape), reps=20)
+
+
+_STREAMS: dict = {}
+
+
+def config12f() -> bytes:
+    """chip_smoke.config12f(), encoded once a process."""
+    import chip_smoke as CS
+
+    if "config12f" not in _STREAMS:
+        _STREAMS["config12f"] = CS.config12f()
+    return _STREAMS["config12f"]
+
+
+def epf_rows_case(name: str, dev):
+    """B7's rows entry on the stripe of shard 1 for the step kind the name
+    ends in (_k0 12-tap, _k1 4-tap cross, _k2 4-tap plain), captured from
+    config 12F's filtered decode on 8 shards of this card; within
+    XYB_ATOL of the plain version."""
+    import torch
+
+    import chip_smoke as CS
+    from j40_tpu_torch.ops import filter_kernels as FK
+    from j40_tpu_torch.parallel import sharded_decode as SD
+
+    kind = int(name.rsplit("_k", 1)[1])
+    with CS.keep_rows_calls() as captured:
+        SD.decode_sharded(config12f(), mesh=CS.mesh_of(dev, CS.SHARDS), apply_filters=True)
+    args = captured["epf"][CS.SHARDS * kind + 1]
+    assert args[3] == kind, (name, args[3])
+    ref = FK.epf_step_rows_ref(*args)
+
+    def check() -> None:
+        assert (FK.epf_step_rows(*args) - ref).abs().max().item() <= CS.XYB_ATOL
+
+    _, hs, w = args[0].shape
+    out = torch.empty((3, hs - 6, w), device=dev)
+    return (lambda: FK.epf_step_rows(*args)), check, dict(
+        shape=list(args[0].shape), kind=kind, reps=20, queued=True, unit=(hs - 6) * w,
+        unit_key="ns_per_pixel",
+        yardstick=("torch copy of the stripe's own rows: the step's bytes, no arithmetic",
+                   lambda: out.copy_(args[0][:, 3:-3])))
+
+
+def epf_ragged_case(dev):
+    """B7's three launches (12-tap, 4-tap cross, 4-tap plain) on
+    chip_smoke.py's (3, 1023, 1021) ragged plane through epf_device;
+    within 2e-3 of the chain of plain steps."""
+    import chip_smoke as CS
+    from j40_tpu_torch.ops import filter_kernels as FK
+
+    ch, rs8 = CS.ragged_plane(dev)
+    ref = CS.ragged_ref(ch, rs8)
+
+    def call():
+        return FK.epf_device(ch, rs8, **CS.RAGGED_EPF)
+
+    def check() -> None:
+        assert (call() - ref).abs().max().item() <= 2e-3
+
+    return call, check, dict(
+        shape=list(ch.shape), reps=20, queued=True, unit=ch.shape[1] * ch.shape[2],
+        unit_key="ns_per_pixel",
+        yardstick=("three torch clones of the plane: the three steps' bytes, no arithmetic",
+                   lambda: [ch.clone() for _ in range(3)]))
 
 
 def dct8_case(name: str, dev):
@@ -343,17 +417,33 @@ def main() -> int:
     sass = "--sass" in sys.argv
     argv = [a for a in sys.argv if a != "--sass"]
     pairs = int(argv[2]) if len(argv) > 2 else 20
-    case = argv[3] if len(argv) > 3 else "hf_ans_2048"
+    cases = (argv[3] if len(argv) > 3 else "hf_ans_2048").split(",")
     dev = torch.device("cuda", torch.cuda.current_device())
     libs = {"A": _build.load_kernels()}
     others = [] if argv[1] == "-" else argv[1].split(",")
     for j, other in enumerate(others):
         name = "B" if len(others) == 1 else f"B{j + 1}"
         libs[name] = other_library(Path(other).resolve(), libs["A"], f"ab_other{j}")
+    for case in cases:
+        run_case(case, libs, others, pairs, sass, dev)
+    return 0
+
+
+def run_case(case: str, libs: dict, others: list, pairs: int, sass: bool, dev) -> None:
+    """Check every library on `case`, time them in turns, print one line."""
+    import torch
+
+    import chip_smoke as CS
+    from j40_tpu_torch.ops import _build
+
     if case.removesuffix("_band") in WAVEFRONTS:
         call, check, info = wavefront_case(case, dev)
     elif case == "epf_fused_12f":
         call, check, info = epf_case(dev)
+    elif case.startswith("epf_step_rows_12f_k"):
+        call, check, info = epf_rows_case(case, dev)
+    elif case == "epf_step_ragged":
+        call, check, info = epf_ragged_case(dev)
     elif case == "xyb_srgb_c4":
         call, check, info = xyb_case(dev)
     elif case.startswith("dct8_"):
@@ -365,13 +455,19 @@ def main() -> int:
         check()
 
     queued = info.pop("queued", False)
+    yard_name, yard = info.pop("yardstick", (None, None))
     flush = None
     if info.pop("cold", False):
         scratch = torch.empty(32 << 20, device=dev)  # 128 MB, over the 50 MB L2
         flush = lambda: scratch.fill_(1.0)  # noqa: E731
     keys = list(libs)
     times: dict[str, list[float]] = {k: [] for k in keys}
+    yard_ms = []
     for i in range(pairs + 2):  # the first two rounds warm up
+        if yard is not None:
+            ms = queued_ms(yard, info["reps"])
+            if i >= 2:
+                yard_ms.append(ms)
         for k in (keys if i % 2 == 0 else keys[::-1]):
             _build._lib = libs[k]
             ms = (queued_ms(call, info["reps"], flush) if queued
@@ -383,6 +479,8 @@ def main() -> int:
     unit_key = info.pop("unit_key", "ns_per_symbol")
     if sass:
         info["step_instructions"] = wavefront_step_instructions()
+    if yard is not None:
+        info["yardstick"] = {"what": yard_name, "ms": statistics.median(yard_ms)}
     print(json.dumps({
         "case": case, **info, "timer": "queued CUDA events, median" if queued else "CUDA events",
         "pairs": pairs, "card": torch.cuda.get_device_name(dev),
@@ -391,8 +489,7 @@ def main() -> int:
                **({unit_key: statistics.median(v) * 1e6 / unit} if unit else {})}
            for k, v in times.items()},
         **{f"ratio_{k.lower()}_over_a": statistics.median(
-            b / a for a, b in zip(times["A"], times[k])) for k in keys[1:]}}))
-    return 0
+            b / a for a, b in zip(times["A"], times[k])) for k in keys[1:]}}), flush=True)
 
 
 if __name__ == "__main__":
