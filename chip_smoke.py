@@ -76,13 +76,17 @@ which raises on failure (the script then exits non-zero):
    an LF-group border; config 4 on 4 shards (group-aligned: the mixed
    classes in the shards) and 8 (the overlay) and config 3 on 8, within 1
    level of decode_file; decode_sharded_batch of 16 batch64 images on a
-   (2, 4) mesh; a 1024x1024 Squeeze+RCT lossless stream and bench.py's
-   shent_1024 (per-shard entropy, B6 and W1 once a shard), bit-exact with
-   the host plan; dryrun_multichip(8).  Mpix/s beside the single-device decode
-   of the same stream; B9's rows entry and B7's for each step kind (12-tap,
-   4-tap cross, 4-tap plain: each kind's launches of the counted decode)
-   on shard 1's stripes of config 12F, and B6 on one shard's lanes, as
-   kernel rows;
+   (2, 4) mesh; a 1024x1024 Squeeze+RCT lossless stream (the Squeeze
+   merge kernel S1 once a (merge, shard), the count derived from the
+   stream's transforms) and bench.py's shent_1024 (per-shard entropy, B6
+   and W1 once a shard), bit-exact with the host plan;
+   dryrun_multichip(8) (its lossless leg through S1).  Mpix/s beside the
+   single-device decode of the same stream; B9's rows entry and B7's for
+   each step kind (12-tap, 4-tap cross, 4-tap plain: each kind's launches
+   of the counted decode) on shard 1's stripes of config 12F, B6 on one
+   shard's lanes, and S1 on shard 1's widest horizontal and widest
+   vertical merge of the lossless stream (its time beside a lone chain's),
+   as kernel rows;
 6. profile: one warm decode of configs 3, 4 and 12F under torch.profiler
    (device busy time and idle share) and cProfile (host time by function),
    one each of config 4 and hf_ctx_2048 under `backend="device"`, and one
@@ -95,7 +99,9 @@ which raises on failure (the script then exits non-zero):
    config 12F with --filters, a small animation with --all-frames to
    APNG, each PNG read back (no Pillow here) and equal to the in-process
    decode, and --info on config 4; each run's wall time and the CLI's own
-   "decoded in" line beside phase 4's warm decode of the same stream.
+   "decoded in" line beside phase 4's warm decode of the same stream;
+8. example: examples/serve_device_torch.py (a decode into a toy nn.Module
+   on the card) as a fresh process, which must exit 0.
 
 The streams are encoded first, in worker processes (one per core).
 
@@ -1425,9 +1431,10 @@ def batch_call(fn: str, blobs: list, dev, stats: dict):
     return out
 
 
-def busy(fn) -> tuple[float, float, int]:
+def busy(fn, match: str = "") -> tuple[float, float, int, float]:
     """One call of `fn` under torch.profiler (device activity only): (wall
-    ms, device busy ms, device records)."""
+    ms, device busy ms, device records, busy ms of the records whose name
+    holds `match`, 0 without it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1439,7 +1446,9 @@ def busy(fn) -> tuple[float, float, int]:
         wall = (time.perf_counter() - t0) * 1e3
     spans = [(e.time_range.end - e.time_range.start) for e in prof.events()
              if e.device_type == DeviceType.CUDA and SETTLE_KERNEL not in e.name]
-    return wall, sum(spans) / 1e3, len(spans)
+    mine = [(e.time_range.end - e.time_range.start) for e in prof.events()
+            if match and e.device_type == DeviceType.CUDA and match in e.name]
+    return wall, sum(spans) / 1e3, len(spans), sum(mine) / 1e3
 
 
 def host_profile(fn, lines: int = 14) -> list[str]:
@@ -1538,7 +1547,7 @@ def phase_batch(streams: dict, dev) -> tuple[list[dict], dict]:
                                                 "upload_bytes", "pack_kind", "lf_s",
                                                 "launch_s", "kernel_calls", "ready_s")
                             if k in mid}
-            wall, dev_ms, nrec = busy(lambda: batch_call(fn, blobs, dev, {}))
+            wall, dev_ms, nrec, _ = busy(lambda: batch_call(fn, blobs, dev, {}))
             rec["profile"] = dict(wall_ms=wall, device_busy_ms=dev_ms, records=nrec,
                                   device_idle_share=1 - dev_ms / wall)
             rec["host_cumulative"] = host_profile(lambda: batch_call(fn, blobs, dev, {}))
@@ -1642,6 +1651,78 @@ def keep_rows_calls():
         FK.gaborish_rows, FK.epf_step_rows = orig
 
 
+@contextlib.contextmanager
+def keep_merge_calls():
+    """For the time of the block, the sharded lossless decode's calls of
+    S1's wrapper keep their arguments and the launches the call added to
+    S1's counter: yields [(down, residu, horizontal, launches), ...] in call
+    order (merge after merge, each on shard 0, 1, ...; a shard with no
+    chain is called too and launches nothing)."""
+    from j40_tpu_torch.ops import kernels as K
+    from j40_tpu_torch.parallel import sharded_lossless as SL
+
+    calls: list = []
+    orig = SL.unsqueeze
+
+    def keep(down, residu, horizontal):
+        before = K.launches["unsqueeze"]
+        out = orig(down, residu, horizontal)
+        calls.append((down, residu, horizontal, K.launches["unsqueeze"] - before))
+        return out
+
+    SL.unsqueeze = keep
+    try:
+        yield calls
+    finally:
+        SL.unsqueeze = orig
+
+
+#: least 32-bit integer operations an S1 pair: SmoothTendency's compares,
+#: products and two clamped quotients (~34), the halving and the sums (6)
+S1_OPS = 40
+
+
+def unsqueeze_row(name: str, down, residu, horizontal: bool, kind_calls: int) -> dict:
+    """Kernel S1 (csrc/squeeze.cu) against its plain version (the loop over
+    column pairs of ops/squeeze_kernels.py, ~44 launches a pair, timed once
+    between CUDA events) on one shard's merge, as the sharded decode hands
+    it over (a column shard is a view), equal bit for bit.  Beside the byte
+    bound, the chain: the same merge's first chain alone, whose time over
+    its wr steps is one step's latency."""
+    from j40_tpu_torch.ops import squeeze_kernels as SQ
+
+    got, wanted = SQ.unsqueeze(down, residu, horizontal), []
+    plain_ms = event_ms(lambda: wanted.append(SQ.unsqueeze_ref(down, residu, horizontal)))
+    assert torch.equal(got, wanted[0]), f"{name}: S1 differs from its plain version"
+    ax = 0 if horizontal else 1
+    chains, wr = down.shape[ax], residu.shape[1 - ax]
+    one = (down[:1], residu[:1]) if horizontal else (down[:, :1], residu[:, :1])
+    times = {}
+    for key, args in (("ms", (down, residu)), ("chain", one)):
+        def run(a=args):
+            return SQ.unsqueeze(*a, horizontal)
+        t = device_ms(run)
+        times[key] = (t, "CUPTI") if t is not None else (queued_ms(run, REPS),
+                                                         "queued CUDA events")
+    (ms, timer), (chain_ms, chain_timer) = times["ms"], times["chain"]
+    b = bound((down.numel() + residu.numel() + got.numel()) * 4, S1_OPS * chains * wr)
+    row = dict(
+        name=name, counter="unsqueeze", route="cuda", source="j40_tpu_torch/csrc/squeeze.cu",
+        replaces="j40_tpu/parallel/sharded_lossless.py:61 (its lax.scan at :91)",
+        paths=["lossless_sq/sharded8"], kind_calls=kind_calls,
+        shape=f"down {tuple(down.shape)} + residu {tuple(residu.shape)} int32 of shard 1 "
+              f"of lossless_sq ({'' if down.is_contiguous() else 'non-'}contiguous) -> "
+              f"{tuple(got.shape)}, {'horizontal' if horizontal else 'vertical'}",
+        max_abs_err=0, ms=ms, timer=timer, plain_ms=plain_ms, plain_timer="CUDA events",
+        library_ms=None, library=None, bound_ms=b[0], bound_by=b[1], steps=wr,
+        chain_ms=chain_ms, chain_timer=chain_timer, ns_per_step=chain_ms * 1e6 / wr)
+    print(f"kernel {name} [{row['shape']}]: {ms:.4f} ms ({timer}), chain of {wr} steps "
+          f"{chain_ms:.4f} ms ({chain_timer}; {row['ns_per_step']:.1f} ns a step), plain "
+          f"{plain_ms:.1f} ms (one call, CUDA events), bound {b[0]:.4f} ms ({b[1]}); "
+          f"equal to the plain version")
+    return row
+
+
 def sharded_record(path: str, run, want: dict, reps: int, single) -> tuple[dict, object]:
     """One multi-device path: the launch counters zeroed just before a
     first (checked) call of `run` and read just after, which must equal
@@ -1688,7 +1769,7 @@ def phase_sharded(streams: dict, dev) -> tuple[list[dict], list[dict], dict]:
     from j40_tpu_torch.ops import filter_kernels as FK
     from j40_tpu_torch.parallel import sharded_decode as SD
     from j40_tpu_torch.parallel import sharded_entropy as SE
-    from j40_tpu_torch.parallel.sharded_lossless import decode_sharded_lossless
+    from j40_tpu_torch.parallel.sharded_lossless import decode_sharded_lossless, squeeze_merges
 
     mesh8 = mesh_of(dev, SHARDS)
     records, rows = [], []
@@ -1731,7 +1812,7 @@ def phase_sharded(streams: dict, dev) -> tuple[list[dict], list[dict], dict]:
                 over_1_beyond_3px=int((d[dist >= 3] > 1).sum()),
                 max_diff_3_to_7px=int(d[(dist >= 3) & (dist < FILTER_REACH)].max()),
                 max_diff_beyond_7px=far)
-    wall, busy_ms, nrec = busy(lambda: SD.decode_sharded(data, mesh=mesh8, apply_filters=True))
+    wall, busy_ms, nrec, _ = busy(lambda: SD.decode_sharded(data, mesh=mesh8, apply_filters=True))
     rec["profile"] = dict(wall_ms=wall, device_busy_ms=busy_ms, records=nrec,
                           device_idle_share=1 - busy_ms / wall)
     rec["host_cumulative"] = host_profile(
@@ -1775,14 +1856,31 @@ def phase_sharded(streams: dict, dev) -> tuple[list[dict], list[dict], dict]:
     assert diff <= 1, f"sharded batch: max|diff| {diff}"
     report(rec, "batch64", f"16 x {BATCH_PX}x{BATCH_PX}", 16 * BATCH_PX ** 2 / 1e6, diff)
 
-    # lossless Squeeze + RCT on 8 shards: bit-exact with the host plan
+    # lossless Squeeze + RCT on 8 shards: bit-exact with the host plan, S1
+    # once a (merge, shard) that holds a chain, as the stream's transforms
+    # give it; each merge axis's launches read off the counter call by call
+    # in the counted decode, and shard 1's inputs of each merge kept for
+    # the kernel rows
     data = streams["lossless_sq"]
     _, ref = _decode(data, "numpy")
-    rec, out = sharded_record("lossless_sq/sharded8",
-                              lambda: decode_sharded_lossless(data, mesh=mesh8), {}, 0,
-                              lambda: _decode(data, "torch"))
+    merges = squeeze_merges(data)
+    want = {h: sum(min(c, SHARDS) for x, c, _ in merges if x == h) for h in (True, False)}
+    with keep_merge_calls() as merge_calls:
+        rec, out = sharded_record("lossless_sq/sharded8",
+                                  lambda: decode_sharded_lossless(data, mesh=mesh8),
+                                  {"unsqueeze": sum(want.values())}, 3,
+                                  lambda: _decode(data, "torch"))
     assert np.array_equal(out, ref), "sharded lossless != host plan"
-    report(rec, "lossless_sq", "1024x1024", 1024 * 1024 / 1e6, 0)
+    counted = merge_calls[:SHARDS * len(merges)]  # the counted decode's calls
+    assert sum(c[3] for c in counted) == rec["launches"]["unsqueeze"]
+    axis_launches = {h: sum(c[3] for c in counted if c[2] == h) for h in (True, False)}
+    assert axis_launches == want, f"lossless_sq: S1 launches {axis_launches}, want {want}"
+    wall, busy_ms, nrec, s1_ms = busy(lambda: decode_sharded_lossless(data, mesh=mesh8),
+                                      "unsqueeze_")
+    rec["profile"] = dict(wall_ms=wall, device_busy_ms=busy_ms, records=nrec,
+                          device_idle_share=1 - busy_ms / wall, s1_busy_ms=s1_ms)
+    report(rec, "lossless_sq", "1024x1024", 1024 * 1024 / 1e6, 0, merges=len(merges),
+           profile=rec["profile"])
 
     # per-shard entropy decode of shent_1024: B6 and W1 once a shard
     data = streams["shent_1024"]
@@ -1805,6 +1903,7 @@ def phase_sharded(streams: dict, dev) -> tuple[list[dict], list[dict], dict]:
     dry.update(seconds=time.perf_counter() - t0,
                launches={k: v for k, v in K.launches.items() if v})
     print(f"dryrun_multichip({SHARDS}): {dry}")
+    assert dry["launches"].get("unsqueeze"), "dryrun_multichip's lossless leg launched no S1"
 
     # kernel rows: B9's and B7's rows entries at config 12F's shard shape
     # (B9 first: the plain EPF step's ~340 records a call make CUPTI lose
@@ -1862,6 +1961,14 @@ def phase_sharded(streams: dict, dev) -> tuple[list[dict], list[dict], dict]:
     tok = token_row("tokens_shard", "shent_1024", lanes[:per], dev)
     tok["paths"] = ["shent_1024/sharded8"]
     rows.append(tok)
+    # S1 on shard 1's widest horizontal and widest vertical merge of
+    # lossless_sq (the first, counted call's arguments: a call a shard)
+    for kind, horizontal in (("h", True), ("v", False)):
+        m = max((i for i, x in enumerate(merges) if x[0] == horizontal),
+                key=lambda i: merges[i][2])
+        down, residu = counted[SHARDS * m + 1][:2]
+        rows.append(unsqueeze_row(f"unsqueeze_{kind}", down, residu, horizontal,
+                                  axis_launches[horizontal]))
     paths = [r["path"] for r in records]
     for r in rows[:4]:
         r["paths"] = paths
@@ -2338,6 +2445,21 @@ def phase_cli(streams: dict, mains: list[dict]) -> list[dict]:
     return rows
 
 
+def phase_example() -> dict:
+    """examples/serve_device_torch.py, the serving example, as a fresh
+    process on the card: it must exit 0 with the decoded image a CUDA
+    tensor assembled from the reconstruction's planes."""
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, str(root / "examples" / "serve_device_torch.py")]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    assert r.returncode == 0, f"{' '.join(cmd)}: rc {r.returncode}\n{r.stderr[-3000:]}"
+    assert " on cuda" in r.stdout and "(route planes)" in r.stdout, r.stdout
+    print(f"example serve_device_torch.py: process wall {wall:.2f} s; {r.stdout.strip()}")
+    return dict(wall_s=wall, stdout=r.stdout.strip().splitlines())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2430,7 +2552,7 @@ def main() -> int:
         r["launches"] = sum(m["launches"][r.get("counter", r["name"])] for m in mains + sharded
                             if (m.get("path") in paths if paths is not None
                                 else m.get("path") not in other))
-        if "kind_calls" in r:  # B7 rows: the calls of its step kind among them
+        if "kind_calls" in r:  # B7 and S1 rows: the calls of its kind among them
             assert 0 < r["kind_calls"] <= r["launches"], (r["name"], r["launches"])
             r["launches"] = r.pop("kind_calls")
         assert r["launches"] > 0, f"{r['name']} never launched on the main path"
@@ -2452,12 +2574,14 @@ def main() -> int:
     # the command-line decoder, one process a run
     cli = phase_cli(streams, mains)
     lap("cli")
+    example = phase_example()
+    lap("example")
     out_dir = Path(__file__).resolve().parent / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build=build, kernels=kernels, flat_probes=flat, main_path=mains,
         serving=serving, sharded=sharded, dryrun_multichip=dry, host_gather=gathers, timer_notes=TIMER_NOTES,
-        epf_skipped_blocks=skipped, profiles=profiles, cli=cli,
+        epf_skipped_blocks=skipped, profiles=profiles, cli=cli, example=example,
         seconds=time.perf_counter() - t_start), indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2469,7 +2593,7 @@ def main() -> int:
     # call; the batch rows the paths whose launches they count
     extra = ("timer", "plain_timer", "ns_per_symbol", "symbols_per_s", "design", "sync",
              "ms_events", "paths", "diagonals", "ns_per_diagonal", "launches_per_stream",
-             "ns_per_pixel", "per_launch")
+             "ns_per_pixel", "per_launch", "steps", "chain_ms", "ns_per_step")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in kernels]}))
     print(card["nvidia_smi"])

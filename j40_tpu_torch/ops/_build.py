@@ -20,7 +20,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = [_PKG / "csrc" / n
-           for n in ("reconstruct.cu", "filters.cu", "hf.cu", "tokens.cu", "wavefront.cu")]
+           for n in ("reconstruct.cu", "filters.cu", "hf.cu", "tokens.cu", "wavefront.cu",
+                     "squeeze.cu")]
 #: headers the sources include (hashed with them)
 HEADERS = [_PKG / "csrc" / n for n in ("entropy.cuh", "prefix_sync.cuh")]
 BUILD_DIR = _PKG.parent / "build" / "j40_tpu_torch"
@@ -131,6 +132,9 @@ def load_kernels():
         lib.j40tt_wavefront_wp.restype = i
         lib.j40tt_wavefront_limits.argtypes = [p]
         lib.j40tt_wavefront_limits.restype = i
+        # csrc/squeeze.cu; the inputs' strides in elements
+        lib.j40tt_unsqueeze.argtypes = [p, ll, ll, p, ll, ll, p, i, i, i, i, p]
+        lib.j40tt_unsqueeze.restype = i
         lib.j40tt_error_string.argtypes = [i]
         lib.j40tt_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -27,13 +27,14 @@ from . import reconstruct as R
 
 #: kernel launches since the last reset_launches(), by wrapper name (the
 #: filter wrappers of ops/filter_kernels.py, the HF entropy wrappers of
-#: ops/hf_kernels.py, the token wrapper of ops/token_kernels.py and the
-#: wavefront wrappers of ops/wavefront_kernels.py count here too)
+#: ops/hf_kernels.py, the token wrapper of ops/token_kernels.py, the
+#: wavefront wrappers of ops/wavefront_kernels.py and the Squeeze wrapper
+#: of ops/squeeze_kernels.py count here too)
 launches = {"reconstruct_dct8_srgb": 0, "reconstruct_dct8": 0, "xyb_to_srgb": 0,
             "epf_step": 0, "epf_step_rows": 0, "epf_fused": 0, "gaborish": 0,
             "gaborish_rows": 0, "hf": 0, "hf_ctx": 0, "tokens": 0, "wavefront": 0,
             "wavefront_mixed": 0, "wavefront_wp": 0, "wavefront_wp_codes": 0,
-            "wavefront_tree": 0}
+            "wavefront_tree": 0, "unsqueeze": 0}
 _launch_lock = threading.Lock()
 
 

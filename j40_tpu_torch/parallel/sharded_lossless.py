@@ -11,16 +11,15 @@ the spec oracle `modular.transforms`).
 
 Sharding: each unsqueeze step is sequential along its merge axis
 (SmoothTendency reads the previously reconstructed neighbour, spec H.6.1)
-but independent across the other axis.  A horizontal step therefore runs a
-loop over column pairs on row shards, a vertical step on column shards.
-j40_tpu flips the sharded axis between steps with
-`with_sharding_constraint` (an all-to-all); here each step splits its two
-planes over the mesh's devices along the independent axis and gathers the
-merged plane back (an explicit gather and re-split).  The render runs on
-row shards too.  No Pallas kernel sits on this path: the column loop is
-some 44 small int32 ops a column pair and shard
-(tools/sharded_cpu_counts.py; PERF.md §5), the kind of cost a hand kernel
-would remove.
+but independent across the other axis.  A horizontal step therefore runs
+on row shards, a vertical step on column shards, each merge of a shard one
+launch of kernel S1 (ops/squeeze_kernels.unsqueeze, csrc/squeeze.cu; its
+plain version, the loop over column pairs, on CPU tensors).  j40_tpu flips
+the sharded axis between steps with `with_sharding_constraint` (an
+all-to-all); here each step splits its two planes over the mesh's devices
+along the independent axis and gathers the merged plane back (an explicit
+gather and re-split).  The inverse RCT and the render are PyTorch ops, as
+they are XLA elementwise code in j40_tpu; the render runs on row shards.
 
 All arithmetic is int32, bit-identical to the numpy oracle for any stream
 whose samples fit 16 bits (wide streams raise Unsupported, as in j40_tpu).
@@ -33,67 +32,7 @@ import torch
 
 from ..errors import Unsupported, check
 from ..modular.transforms import RCT_PERMUTATIONS, TR_RCT, TR_SQUEEZE
-
-
-def _trunc_div(x, d: int):
-    """Integer division rounding toward zero (C's `/`)."""
-    return torch.div(x, d, rounding_mode="trunc")
-
-
-def _tendency_terms(a, n):
-    """The parts of SmoothTendency that do not read B (the left neighbour
-    the scan carries), for a whole plane at once: port: the scan's loop
-    then launches only the B-dependent ops."""
-    return a >= n, a <= n, 3 * n + a, 2 * (a - n)
-
-
-def _smooth_tendency(B, a, n, terms=None):
-    """SmoothTendency (spec H.6.1), branchless int32 (oracle:
-    modular.transforms._smooth_tendency); `terms` = _tendency_terms(a, n)."""
-    ge, le, k, an2 = _tendency_terms(a, n) if terms is None else terms
-    inc = (B >= a) & ge
-    dec = (B <= a) & le & ~inc
-    t = 4 * B - k
-    ba2 = 2 * (B - a)
-
-    d_inc = _trunc_div(t + 6, 12)
-    d_inc = torch.where((d_inc - (d_inc & 1)) > ba2, ba2 + 1, d_inc)
-    d_inc = torch.where((d_inc + (d_inc & 1)) > an2, an2, d_inc)
-
-    d_dec = _trunc_div(t - 6, 12)
-    d_dec = torch.where((d_dec + (d_dec & 1)) < ba2, ba2 - 1, d_dec)
-    d_dec = torch.where((d_dec - (d_dec & 1)) < an2, an2, d_dec)
-
-    return torch.where(inc, d_inc, torch.where(dec, d_dec, 0))
-
-
-def _inv_squeeze_h_scan(down, residu):
-    """Horizontal unsqueeze: a loop over output column pairs, rows
-    vectorized (bit-equal to modular.transforms._inv_squeeze_h in int32;
-    j40_tpu's lax.scan)."""
-    h, wd = down.shape
-    wr = residu.shape[1]
-    w = wd + wr
-    if wr == 0 or h == 0:
-        return torch.cat([down, residu], dim=1) if wr else down
-    # next_avg = down[:, x+1] (clamped to the last column when x+1 == wd)
-    nxt = down[:, 1:] if wd > wr else torch.cat([down[:, 1:], down[:, -1:]], dim=1)
-    avg_all = down[:, :wr]
-    terms = _tendency_terms(avg_all, nxt[:, :wr])
-    firsts, seconds = [], []
-    left = down[:, 0]
-    for x in range(wr):
-        avg = avg_all[:, x]
-        diff = residu[:, x] + _smooth_tendency(left, avg, None,
-                                               tuple(t[:, x] for t in terms))
-        first = avg + _trunc_div(diff, 2)
-        left = first - diff
-        firsts.append(first)
-        seconds.append(left)
-    out = torch.stack([torch.stack(firsts, 1), torch.stack(seconds, 1)], 2).reshape(h, 2 * wr)
-    if w & 1:
-        out = torch.cat([out, down[:, -1:]], dim=1)
-    return out
+from ..ops.squeeze_kernels import unsqueeze
 
 
 def _split(x: torch.Tensor, dim: int, devices: list) -> list:
@@ -104,6 +43,22 @@ def _split(x: torch.Tensor, dim: int, devices: list) -> list:
 
 def _gather(parts: list, dim: int, device) -> torch.Tensor:
     return torch.cat([p.to(device) for p in parts], dim=dim)
+
+
+def _walk(transforms, chans: list, merge, rct) -> list:
+    """The inverse-transform steps over the channel list `chans`, in order:
+    a Squeeze step sets each of its channels to merge(channel, residual,
+    horizontal) and drops the residuals, an RCT step calls rct(chans,
+    begin_c, rct_type).  Returns `chans`."""
+    for t in transforms:
+        if t[0] == "sq":
+            _, begin_c, num_c, offset, horizontal = t
+            for k in range(num_c):
+                chans[begin_c + k] = merge(chans[begin_c + k], chans[offset + k], horizontal)
+            del chans[offset : offset + num_c]
+        else:
+            rct(chans, *t[1:])
+    return chans
 
 
 def _device_finish_fn(transforms, meta, devices, bpp):
@@ -121,50 +76,41 @@ def _device_finish_fn(transforms, meta, devices, bpp):
     depth = meta["depth"]
     home = devices[0]
 
+    def merge(down, residu, horizontal):
+        # horizontal merges on row shards, vertical on column shards
+        ax = 0 if horizontal else 1
+        return _gather([unsqueeze(a, b, horizontal) for a, b in
+                        zip(_split(down, ax, devices), _split(residu, ax, devices))],
+                       ax, home)
+
+    def rct(chans, b, rct_type):
+        p0, p1, p2 = chans[b], chans[b + 1], chans[b + 2]
+        tt = rct_type % 7
+        if tt == 1:
+            p2 = p2 + p0
+        elif tt == 2:
+            p2 = p1 + p0
+        elif tt == 3:
+            p1 = p1 + p0
+            p2 = p2 + p0
+        elif tt == 4:
+            p1 = p1 + ((p0 + p2) >> 1)
+        elif tt == 5:
+            p1 = p1 + p0 + (p2 >> 1)
+            p2 = p2 + p0
+        elif tt == 6:  # YCgCo
+            tmp = p0 - (p2 >> 1)
+            np1 = p2 + tmp
+            np2 = tmp - (p1 >> 1)
+            p0, p1, p2 = np2 + p1, np1, np2
+        perm = RCT_PERMUTATIONS[rct_type // 7]
+        out = [None] * 3
+        for i, pl in enumerate((p0, p1, p2)):
+            out[perm[i]] = pl
+        chans[b], chans[b + 1], chans[b + 2] = out
+
     def run(*planes):
-        chans = list(planes)
-        for t in transforms:
-            if t[0] == "sq":
-                _, begin_c, num_c, offset, horizontal = t
-                for k in range(num_c):
-                    c = chans[begin_c + k]
-                    rc = chans[offset + k]
-                    if horizontal:  # row shards
-                        parts = [_inv_squeeze_h_scan(a, b) for a, b in
-                                 zip(_split(c, 0, devices), _split(rc, 0, devices))]
-                        merged = _gather(parts, 0, home)
-                    else:  # column shards, each merged as its transpose
-                        parts = [_inv_squeeze_h_scan(a.T, b.T).T for a, b in
-                                 zip(_split(c, 1, devices), _split(rc, 1, devices))]
-                        merged = _gather(parts, 1, home)
-                    chans[begin_c + k] = merged
-                del chans[offset : offset + num_c]
-            else:
-                _, b, rct_type = t
-                p0, p1, p2 = chans[b], chans[b + 1], chans[b + 2]
-                tt = rct_type % 7
-                if tt == 1:
-                    p2 = p2 + p0
-                elif tt == 2:
-                    p2 = p1 + p0
-                elif tt == 3:
-                    p1 = p1 + p0
-                    p2 = p2 + p0
-                elif tt == 4:
-                    p1 = p1 + ((p0 + p2) >> 1)
-                elif tt == 5:
-                    p1 = p1 + p0 + (p2 >> 1)
-                    p2 = p2 + p0
-                elif tt == 6:  # YCgCo
-                    tmp = p0 - (p2 >> 1)
-                    np1 = p2 + tmp
-                    np2 = tmp - (p1 >> 1)
-                    p0, p1, p2 = np2 + p1, np1, np2
-                perm = RCT_PERMUTATIONS[rct_type // 7]
-                out = [None] * 3
-                for i, pl in enumerate((p0, p1, p2)):
-                    out[perm[i]] = pl
-                chans[b], chans[b + 1], chans[b + 2] = out
+        chans = _walk(transforms, list(planes), merge, rct)
         # clamp + interleave render (j40.h:7910-7962), on row shards
         maxp = (1 << bpp) - 1
         omax = (1 << depth) - 1
@@ -215,33 +161,15 @@ def _device_finish_fn(transforms, meta, devices, bpp):
     return run
 
 
-def decode_sharded_lossless(
-    data: bytes,
-    mesh=None,
-    n_devices: int | None = None,
-    owners: int | None = None,
-    bit_depth: int = 8,
-) -> np.ndarray:
-    """Decode a lossless Modular .jxl across a device mesh; (H, W, 4) uint8
-    (or uint16 with bit_depth=16, the U16X4 analog of api.output_format).
-
-    Host threads entropy-decode the TOC sections (one owner chunk per mesh
-    row); the Squeeze/RCT inverse-transform chain and the render run on the
-    mesh's shards.  Bit-exact vs the single-device Decoder (YCbCr frames:
-    within 1 gray level — device f32 vs host f64 BT.601).  Without `mesh`,
-    the first `n_devices` CUDA devices (parallel/mesh.default_mesh)."""
-    from .mesh import axis_devices, default_mesh
-
-    check(bit_depth in (8, 16), "fmt?", "bit_depth must be 8 or 16")
-    if mesh is None:
-        mesh = default_mesh(n_devices)
-    shard_axis = mesh.axis_names[-1]
-    devices = axis_devices(mesh, shard_axis)
-    n = len(devices)
-
+def _host_sections(data: bytes, workers: int):
+    """The host half of a sharded lossless decode: the TOC sections decoded
+    by `workers` threads, the frame-level transforms left pending.  Returns
+    (decoder, frame header, global modular image, the inverse-transform
+    steps in application order); raises Unsupported on what the device
+    chain does not take."""
     from ..decode import Decoder
 
-    d = Decoder(data, backend="numpy", workers=owners or n)
+    d = Decoder(data, backend="numpy", workers=workers)
     d.decode_frame(_defer_finish=True)  # sections done; transforms pending
     f, toc, state = d._deferred
     d._deferred = None
@@ -268,6 +196,50 @@ def decode_sharded_lossless(
         if c.empty:
             raise Unsupported(message="sharded lossless: empty channel")
 
+    return d, f, gm, steps
+
+
+def squeeze_merges(data: bytes) -> list[tuple[bool, int, int]]:
+    """The Squeeze merges a sharded decode of `data` runs, in order, as
+    (horizontal, chains, residual width) each: on n shards a merge launches
+    kernel S1 once a shard that holds a chain, min(chains, n) times."""
+    _, _, gm, steps = _host_sections(data, 1)
+    merges = []
+
+    def merge(shape, rshape, horizontal):
+        (h, w), (hr, wr) = shape, rshape
+        merges.append((horizontal, h, wr) if horizontal else (horizontal, w, hr))
+        return (h, w + wr) if horizontal else (h + hr, w)
+
+    _walk(steps, [(c.height, c.width) for c in gm.channels], merge, lambda *_: None)
+    return merges
+
+
+def decode_sharded_lossless(
+    data: bytes,
+    mesh=None,
+    n_devices: int | None = None,
+    owners: int | None = None,
+    bit_depth: int = 8,
+) -> np.ndarray:
+    """Decode a lossless Modular .jxl across a device mesh; (H, W, 4) uint8
+    (or uint16 with bit_depth=16, the U16X4 analog of api.output_format).
+
+    Host threads entropy-decode the TOC sections (one owner chunk per mesh
+    row); the Squeeze/RCT inverse-transform chain and the render run on the
+    mesh's shards.  Bit-exact vs the single-device Decoder (YCbCr frames:
+    within 1 gray level — device f32 vs host f64 BT.601).  Without `mesh`,
+    the first `n_devices` CUDA devices (parallel/mesh.default_mesh)."""
+    from .mesh import axis_devices, default_mesh
+
+    check(bit_depth in (8, 16), "fmt?", "bit_depth must be 8 or 16")
+    if mesh is None:
+        mesh = default_mesh(n_devices)
+    shard_axis = mesh.axis_names[-1]
+    devices = axis_devices(mesh, shard_axis)
+    n = len(devices)
+
+    d, f, gm, steps = _host_sections(data, owners or n)
     im = d.image
     ncolor = d._ncolor(f)
     alpha_idx = None

@@ -950,3 +950,88 @@ def test_render_rgba8_device_on_card(cuda, backend):
         np.testing.assert_array_equal(got.cpu().numpy(), dec.render_rgba8())
         outs.append(got.cpu().numpy().astype(np.int64))
     assert np.abs(outs[0] - outs[1]).max() <= 1
+
+
+# ------------------------------------------- S1: the inverse Squeeze merge
+
+#: (chains, wd, wr): wr = 0, wd == wr (next clamped) and wr + 1 (odd
+#: width), one chain, a pair past a 32-pair chunk, and the widest merges of
+#: chip_smoke's lossless_sq on a shard of 8 (128 chains of 512 pairs)
+SQ_SHAPES = [(1, 1, 0), (6, 1, 1), (6, 2, 1), (1, 9, 8), (7, 17, 16), (33, 33, 32),
+             (33, 41, 40), (31, 64, 64), (128, 512, 512), (130, 257, 256)]
+
+
+def _merge_views(horizontal, chains, wd, wr, values, seed, device):
+    """down and residu of a merge as views into planes 5 samples wider
+    (along the merge when horizontal, across the chains when vertical): a
+    column shard's layout, a row stride past the view's width."""
+    rng = np.random.default_rng(seed)
+    lo, hi = (-(1 << 13), 1 << 13) if values == "14bit" else (-(1 << 31), 1 << 31)
+    views = []
+    for n in (wd, wr):
+        shape = (chains, n + 5) if horizontal else (n, chains + 5)
+        full = torch.from_numpy(rng.integers(lo, hi, shape, dtype=np.int64).astype(np.int32))
+        full = full.to(device)
+        views.append(full[:, 2:2 + n] if horizontal else full[:, 2:2 + chains])
+    return views
+
+
+@pytest.mark.parametrize("values", ["14bit", "int32"])
+@pytest.mark.parametrize("chains,wd,wr", SQ_SHAPES)
+@pytest.mark.parametrize("horizontal", [True, False], ids=["h", "v"])
+def test_unsqueeze_vs_plain(cuda, horizontal, chains, wd, wr, values):
+    """S1 on non-contiguous views and on their contiguous copies equals its
+    plain version bit for bit, one launch a merge."""
+    from j40_tpu_torch.ops import squeeze_kernels as SQ
+
+    args = (horizontal, chains, wd, wr, values, 10 * chains + wr)
+    want = SQ.unsqueeze(*_merge_views(*args, "cpu"), horizontal)
+    down, residu = _merge_views(*args, cuda)
+    K.reset_launches()
+    got = SQ.unsqueeze(down, residu, horizontal)
+    dense = SQ.unsqueeze(down.contiguous(), residu.contiguous(), horizontal)
+    torch.cuda.synchronize()
+    assert K.launches["unsqueeze"] == 2 and got.is_contiguous()
+    assert torch.equal(got.cpu(), want) and torch.equal(dense.cpu(), want)
+
+
+def test_unsqueeze_refuses(cuda):
+    from j40_tpu_torch.ops import squeeze_kernels as SQ
+
+    z = lambda *s, dt=torch.int32: torch.zeros(*s, dtype=dt, device=cuda)  # noqa: E731
+    for down, residu, horizontal in [(z(4, 5), z(3, 4), True), (z(5, 4), z(4, 3), False),
+                                     (z(4, 6), z(4, 4), True), (z(3, 4), z(5, 4), False),
+                                     (z(4, 5, dt=torch.int64), z(4, 4), True),
+                                     (z(4, 5, dt=torch.float32), z(4, 4), False)]:
+        with pytest.raises(ValueError):
+            SQ.unsqueeze(down, residu, horizontal)
+    with pytest.raises(ValueError):  # on two devices
+        SQ.unsqueeze(z(4, 5), torch.zeros(4, 4, dtype=torch.int32), True)
+    K.reset_launches()
+    assert SQ.unsqueeze(z(0, 5), z(0, 4), True).shape == (0, 9)
+    assert K.launches["unsqueeze"] == 0
+
+
+def test_sharded_lossless_on_card(cuda):
+    """decode_sharded_lossless on Mesh([cuda:0] * 4): S1 once a (merge,
+    shard), bit-exact with Mesh([cpu] * 4) (the plain merge, no launch) and
+    the host plan."""
+    from j40_tpu_torch.encode.advanced import AdvancedOptions, encode_modular_advanced
+    from j40_tpu_torch.parallel import sharded_lossless as SL
+    from j40_tpu_torch.parallel.mesh import Mesh
+
+    data = encode_modular_advanced(_lossless(192, 320, seed=77),
+                                   options=AdvancedOptions(squeeze=True, rct_type=6))
+    merges = SL.squeeze_merges(data)
+    assert sum(min(chains, 4) for _, chains, _ in merges) == 4 * len(merges)
+    K.reset_launches()
+    got = SL.decode_sharded_lossless(data, mesh=Mesh([cuda] * 4, ("rows",)))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in K.launches.items() if v} == {"unsqueeze": 4 * len(merges)}
+    K.reset_launches()
+    cpu = SL.decode_sharded_lossless(data, mesh=Mesh(["cpu"] * 4, ("rows",)))
+    assert not any(K.launches.values())
+    host = Decoder(data, backend="numpy", workers=2)
+    host.decode_frame()
+    np.testing.assert_array_equal(got, cpu)
+    np.testing.assert_array_equal(got, host.render_rgba8())

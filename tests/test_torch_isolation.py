@@ -135,7 +135,8 @@ def _imports(path: Path):
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                  ROOT / "examples" / "serve_device_torch.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_forbidden_imports(path):
@@ -148,17 +149,17 @@ def test_no_forbidden_imports(path):
 
 def test_every_kernel_source_is_built():
     """The one kernel library is built from every CUDA source of csrc/
-    (reconstruct.cu, filters.cu, hf.cu, tokens.cu and wavefront.cu, hashed
-    with the headers they include), and its wrappers are in the scan
-    above."""
+    (reconstruct.cu, filters.cu, hf.cu, tokens.cu, wavefront.cu and
+    squeeze.cu, hashed with the headers they include), and its wrappers are
+    in the scan above."""
     from j40_tpu_torch.ops import _build
 
     assert sorted(_build.SOURCES) == sorted((PORT / "csrc").glob("*.cu"))
     assert {p.name for p in _build.SOURCES} == {"reconstruct.cu", "filters.cu", "hf.cu",
-                                                "tokens.cu", "wavefront.cu"}
+                                                "tokens.cu", "wavefront.cu", "squeeze.cu"}
     assert sorted(_build.HEADERS) == sorted((PORT / "csrc").glob("*.cuh"))
     for wrappers in ("filter_kernels.py", "hf_kernels.py", "token_kernels.py",
-                     "device_modular.py", "wavefront_kernels.py"):
+                     "device_modular.py", "wavefront_kernels.py", "squeeze_kernels.py"):
         assert (PORT / "ops" / wrappers) in set(PORT.rglob("*.py"))
 
 

@@ -156,6 +156,19 @@ def _jax_lossless(rct_type):
     return decode_sharded_lossless(_lossless_blob(rct_type), mesh=_jax_mesh(4))
 
 
+def _ycbcr_blob(subsample):
+    # tests/test_parallel.py::test_sharded_lossless_ycbcr's stream
+    rng = np.random.default_rng(85)
+    img = (np.cumsum(rng.integers(-3, 4, (96, 128, 3)), 1) % 200).astype(np.uint8)
+    return encode_modular(img, options=EncodeOptions(ycbcr=True, ycbcr_subsample=subsample))
+
+
+def _jax_lossless_ycbcr(subsample):
+    from j40_tpu.parallel.sharded_lossless import decode_sharded_lossless
+
+    return decode_sharded_lossless(_ycbcr_blob(subsample), mesh=_jax_mesh(4))
+
+
 def _entropy_blob():
     # 8 sections of 128x8 (the plain token decoder takes ~0.25 ms a symbol
     # step on the CPU), global tree, rANS
@@ -199,7 +212,8 @@ def _jax_epf(route):
 
 
 _JAX = {"decode": _jax_decode, "bit16": _jax_bit16, "batch": _jax_batch,
-        "lossless": _jax_lossless, "entropy": _jax_entropy, "epf": _jax_epf}
+        "lossless": _jax_lossless, "lossless_ycbcr": _jax_lossless_ycbcr,
+        "entropy": _jax_entropy, "epf": _jax_epf}
 
 
 # ---------------------------------------------------------------- the mesh
@@ -376,6 +390,17 @@ def test_sharded_lossless(jax_ref, rct_type):
     np.testing.assert_array_equal(got, _host(blob, workers=2).render_rgba8())
 
 
+@pytest.mark.parametrize("subsample", [(0, 0, 0), (1, 0, 1)], ids=["444", "420"])
+def test_sharded_lossless_ycbcr(jax_ref, subsample):
+    """YCbCr frames, chroma full or 2x subsampled (replicated in the
+    render): the f32 BT.601 render equal to j40_tpu's, within 1 level of
+    the host plan's f64."""
+    blob = _ycbcr_blob(subsample)
+    got = TSL.decode_sharded_lossless(blob, mesh=_mesh(4))
+    np.testing.assert_array_equal(got, jax_ref("lossless_ycbcr", subsample))
+    assert np.abs(got.astype(np.int64) - _host(blob).render_rgba8()).max() <= 1
+
+
 def test_sharded_lossless_palette_raises():
     from j40_tpu_torch.errors import Unsupported
 
@@ -388,17 +413,19 @@ def test_sharded_lossless_palette_raises():
 
 
 def test_trunc_div_and_smooth_tendency():
-    """The int32 helpers against j40_tpu's on every sign case."""
+    """The int32 helpers of the plain merge (ops/squeeze_kernels.py) against
+    j40_tpu's on every sign case."""
     import jax.numpy as jnp
 
     from j40_tpu.parallel import sharded_lossless as J
+    from j40_tpu_torch.ops import squeeze_kernels as SQ
 
     rng = np.random.default_rng(1)
     a, b, n = (rng.integers(-300, 300, 4000).astype(np.int32) for _ in range(3))
     for d in (2, 12):
-        np.testing.assert_array_equal(TSL._trunc_div(torch.from_numpy(a), d).numpy(),
+        np.testing.assert_array_equal(SQ._trunc_div(torch.from_numpy(a), d).numpy(),
                                       np.asarray(J._trunc_div(jnp.asarray(a), d)))
-    got = TSL._smooth_tendency(*(torch.from_numpy(v) for v in (b, a, n)))
+    got = SQ._smooth_tendency(*(torch.from_numpy(v) for v in (b, a, n)))
     np.testing.assert_array_equal(got.numpy(), np.asarray(J._smooth_tendency(
         *(jnp.asarray(v) for v in (b, a, n)))))
 

@@ -2,9 +2,10 @@
 
     python3 tools/sharded_cpu_counts.py
 
-1. the sharded lossless path's column loop on chip_smoke's `lossless_sq`
-   stream over 8 shards: the column pairs `_inv_squeeze_h_scan` walks, its
-   calls, and the top-level PyTorch ops of one column pair;
+1. the sharded lossless path's Squeeze merges on chip_smoke's
+   `lossless_sq` stream over 8 shards, through the plain version of kernel
+   S1 (`ops/squeeze_kernels._inv_squeeze_h_scan`): the column pairs it
+   walks, its calls, and the top-level PyTorch ops of one column pair;
 2. how far config 12F-like filtering (gaborish + 3 EPF steps) on 8 shards
    departs from the single-device filtered decode near an LF-group border
    (the single-device plan filters each 2048x2048 group apart): the
@@ -26,6 +27,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as C  # noqa: E402
 from j40_tpu_torch.decode import Decoder  # noqa: E402
 from j40_tpu_torch.encode.vardct_enc import VarDCTOptions, encode_vardct  # noqa: E402
+from j40_tpu_torch.ops import squeeze_kernels as SQ  # noqa: E402
 from j40_tpu_torch.parallel import sharded_lossless as SL  # noqa: E402
 from j40_tpu_torch.parallel.mesh import Mesh  # noqa: E402
 from j40_tpu_torch.parallel.sharded_decode import decode_sharded  # noqa: E402
@@ -37,7 +39,7 @@ def column_loop() -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     counts = {"column_pairs": 0, "calls": 0}
-    scan = SL._inv_squeeze_h_scan
+    scan = SQ._inv_squeeze_h_scan
 
     def counted(down, residu):
         if residu.shape[0]:
@@ -45,11 +47,11 @@ def column_loop() -> dict:
             counts["calls"] += 1
         return scan(down, residu)
 
-    SL._inv_squeeze_h_scan = counted
+    SQ._inv_squeeze_h_scan = counted
     try:
         SL.decode_sharded_lossless(C.lossless_sq_stream(), mesh=MESH)
     finally:
-        SL._inv_squeeze_h_scan = scan
+        SQ._inv_squeeze_h_scan = scan
     # the ops of a column pair: one scan of 9 pairs less one of 1 pair, / 8
     rng = np.random.default_rng(0)
     ops = []
