@@ -1682,13 +1682,30 @@ def keep_merge_calls():
 S1_OPS = 40
 
 
-def unsqueeze_row(name: str, down, residu, horizontal: bool, kind_calls: int) -> dict:
+def squeeze_model():
+    """tools/squeeze_model.py: the CPU model of S1's schedule, whose counts
+    the S1 rows report, and the slope -1 ramp."""
+    tools = str(Path(__file__).resolve().parent / "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import squeeze_model
+
+    return squeeze_model
+
+
+def unsqueeze_row(name: str, down, residu, horizontal: bool, kind_calls: int | None,
+                  what: str = "shard 1 of lossless_sq") -> dict:
     """Kernel S1 (csrc/squeeze.cu) against its plain version (the loop over
     column pairs of ops/squeeze_kernels.py, ~44 launches a pair, timed once
-    between CUDA events) on one shard's merge, as the sharded decode hands
-    it over (a column shard is a view), equal bit for bit.  Beside the byte
-    bound, the chain: the same merge's first chain alone, whose time over
-    its wr steps is one step's latency."""
+    between CUDA events) on one merge (a shard's, as the sharded decode
+    hands it over: a column shard is a view), equal bit for bit.  Beside
+    the byte bound, a lone chain: the same merge's first chain alone
+    (`ns_per_step`: its time over its wr pairs).  `seg` and `convergence`:
+    the segment length and the CPU model's counts on the same inputs (the
+    share of segments whose two walks met, the longest re-walk, the
+    segments walked in full in order, the windows outside the margin, the
+    resolve rounds).  `kind_calls`: the path's launches of this axis, or
+    None for a probe, which names no path."""
     from j40_tpu_torch.ops import squeeze_kernels as SQ
 
     got, wanted = SQ.unsqueeze(down, residu, horizontal), []
@@ -1705,21 +1722,28 @@ def unsqueeze_row(name: str, down, residu, horizontal: bool, kind_calls: int) ->
         times[key] = (t, "CUPTI") if t is not None else (queued_ms(run, REPS),
                                                          "queued CUDA events")
     (ms, timer), (chain_ms, chain_timer) = times["ms"], times["chain"]
+    model_out, counts = squeeze_model().model_unsqueeze(down.cpu(), residu.cpu(), horizontal)
+    assert torch.equal(model_out, got.cpu()), f"{name}: the CPU model differs from S1"
+    conv = dict(segments=counts["segments"], met_share=counts["met"] / counts["segments"],
+                longest_rewalk=counts["longest_rewalk"], unmet=counts["unmet"],
+                margin_windows=counts["margin_windows"], rounds=counts["rounds"])
     b = bound((down.numel() + residu.numel() + got.numel()) * 4, S1_OPS * chains * wr)
     row = dict(
         name=name, counter="unsqueeze", route="cuda", source="j40_tpu_torch/csrc/squeeze.cu",
         replaces="j40_tpu/parallel/sharded_lossless.py:61 (its lax.scan at :91)",
-        paths=["lossless_sq/sharded8"], kind_calls=kind_calls,
-        shape=f"down {tuple(down.shape)} + residu {tuple(residu.shape)} int32 of shard 1 "
-              f"of lossless_sq ({'' if down.is_contiguous() else 'non-'}contiguous) -> "
+        shape=f"down {tuple(down.shape)} + residu {tuple(residu.shape)} int32 of {what} "
+              f"({'' if down.is_contiguous() else 'non-'}contiguous) -> "
               f"{tuple(got.shape)}, {'horizontal' if horizontal else 'vertical'}",
         max_abs_err=0, ms=ms, timer=timer, plain_ms=plain_ms, plain_timer="CUDA events",
         library_ms=None, library=None, bound_ms=b[0], bound_by=b[1], steps=wr,
-        chain_ms=chain_ms, chain_timer=chain_timer, ns_per_step=chain_ms * 1e6 / wr)
-    print(f"kernel {name} [{row['shape']}]: {ms:.4f} ms ({timer}), chain of {wr} steps "
-          f"{chain_ms:.4f} ms ({chain_timer}; {row['ns_per_step']:.1f} ns a step), plain "
-          f"{plain_ms:.1f} ms (one call, CUDA events), bound {b[0]:.4f} ms ({b[1]}); "
-          f"equal to the plain version")
+        chain_ms=chain_ms, chain_timer=chain_timer, ns_per_step=chain_ms * 1e6 / wr,
+        seg=counts["seg"], convergence=conv)
+    if kind_calls is not None:
+        row.update(paths=["lossless_sq/sharded8"], kind_calls=kind_calls)
+    print(f"{'kernel' if kind_calls is not None else 'probe'} {name} [{row['shape']}]: {ms:.4f} ms ({timer}), a lone chain of {wr} "
+          f"pairs {chain_ms:.4f} ms ({chain_timer}; {row['ns_per_step']:.1f} ns a pair), "
+          f"plain {plain_ms:.1f} ms (one call, CUDA events), bound {b[0]:.4f} ms ({b[1]}); "
+          f"segments of {counts['seg']}: {conv}; equal to the plain version and the model")
     return row
 
 
@@ -1744,7 +1768,7 @@ def sharded_record(path: str, run, want: dict, reps: int, single) -> tuple[dict,
                 seconds=secs, timed_calls=reps or 1, single_s=median_s(single)), out
 
 
-def phase_sharded(streams: dict, dev) -> tuple[list[dict], list[dict], dict]:
+def phase_sharded(streams: dict, dev) -> tuple[list[dict], list[dict], dict, list[dict]]:
     """The multi-device paths (j40_tpu_torch/parallel/{sharded_decode,
     sharded_lossless,sharded_entropy}.py) on meshes that repeat the card
     (mesh_of), each checked: config 12F with the filters on 8 shards (equal
@@ -1760,8 +1784,9 @@ def phase_sharded(streams: dict, dev) -> tuple[list[dict], list[dict], dict]:
     The launch counters are zeroed just before each path's checked call and
     read just after.  Kernel rows: B7's and B9's rows entries on an
     interior shard of config 12F (the stripes captured from its checked
-    call), B6 on one shard's lanes of shent_1024.  Returns (path records,
-    kernel rows, the dry run's result)."""
+    call), B6 on one shard's lanes of shent_1024, S1 on shard 1's widest
+    merges of lossless_sq; S1 on the slope -1 ramp as a probe.  Returns
+    (path records, kernel rows, the dry run's result, the probes)."""
     import torch.nn.functional as Fn
 
     from j40_tpu_torch import decode_file
@@ -1969,10 +1994,19 @@ def phase_sharded(streams: dict, dev) -> tuple[list[dict], list[dict], dict]:
         down, residu = counted[SHARDS * m + 1][:2]
         rows.append(unsqueeze_row(f"unsqueeze_{kind}", down, residu, horizontal,
                                   axis_launches[horizontal]))
+        if horizontal:
+            ramp_shape = (down.shape[0], down.shape[1], residu.shape[1])
+    # off the kernels line (the same kernel on content the path never
+    # gives it): the input no segment meets on, at the widest horizontal
+    # merge's shape, the slope -1 ramp with zero residuals
+    down, residu = (torch.from_numpy(a).to(dev) for a in
+                    squeeze_model().ramp(True, *ramp_shape))
+    probes = [unsqueeze_row("unsqueeze_ramp", down, residu, True, None,
+                            "the slope -1 ramp, zero residuals")]
     paths = [r["path"] for r in records]
     for r in rows[:4]:
         r["paths"] = paths
-    return records, rows, dry
+    return records, rows, dry, probes
 
 
 def batch_kernel_rows(streams: dict, dev) -> list[dict]:
@@ -2536,7 +2570,7 @@ def main() -> int:
     mains += batch_paths
     lap("batch paths")
     # the multi-device paths on meshes that repeat the card
-    sharded, sharded_rows, dry = phase_sharded(streams, dev)
+    sharded, sharded_rows, dry, squeeze_probes = phase_sharded(streams, dev)
     kernels += sharded_rows
     lap("multi-device paths")
     for r in kernels:
@@ -2579,7 +2613,8 @@ def main() -> int:
     out_dir = Path(__file__).resolve().parent / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
-        card=card, build=build, kernels=kernels, flat_probes=flat, main_path=mains,
+        card=card, build=build, kernels=kernels, flat_probes=flat,
+        squeeze_probes=squeeze_probes, main_path=mains,
         serving=serving, sharded=sharded, dryrun_multichip=dry, host_gather=gathers, timer_notes=TIMER_NOTES,
         epf_skipped_blocks=skipped, profiles=profiles, cli=cli, example=example,
         seconds=time.perf_counter() - t_start), indent=1))
@@ -2593,7 +2628,8 @@ def main() -> int:
     # call; the batch rows the paths whose launches they count
     extra = ("timer", "plain_timer", "ns_per_symbol", "symbols_per_s", "design", "sync",
              "ms_events", "paths", "diagonals", "ns_per_diagonal", "launches_per_stream",
-             "ns_per_pixel", "per_launch", "steps", "chain_ms", "ns_per_step")
+             "ns_per_pixel", "per_launch", "steps", "chain_ms", "ns_per_step", "seg",
+             "convergence")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in kernels]}))
     print(card["nvidia_smi"])

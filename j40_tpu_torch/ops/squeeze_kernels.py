@@ -14,9 +14,12 @@ in `kernels.launches["unsqueeze"]`.
 A merge is spec H.6.2 with SmoothTendency (H.6.1) in int32: each chain (a
 row of a horizontal merge, a column of a vertical one) is a walk over its
 column pairs, carrying the last sample written, and the chains are
-independent.  The kernel takes one thread a chain, reads its inputs
-through their strides (a column shard is a view of the whole plane and is
-not copied) and writes a contiguous output; both versions equal the spec
+independent.  The kernel cuts each chain into segments that a warp's
+lanes walk at once from both ends of their input's range, then re-walks
+the few pairs before the two ends met (csrc/squeeze.cu; modelled on the
+CPU by tools/squeeze_model.py).  It reads its inputs through
+their strides (a column shard is a view of the whole plane and is not
+copied) and writes a contiguous output; both versions equal the spec
 oracle (modular/transforms.py `_inv_squeeze_h`, `_inv_squeeze_v`) bit for
 bit wherever no int32 sum wraps, and each other everywhere.
 """

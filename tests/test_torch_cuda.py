@@ -12,6 +12,9 @@ on samples of scale 50: within 2e-3 absolute (sums of up to 13 weighted
 taps with FMA contraction, as tests/test_filters.py holds the Pallas EPF).
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -956,9 +959,12 @@ def test_render_rgba8_device_on_card(cuda, backend):
 
 #: (chains, wd, wr): wr = 0, wd == wr (next clamped) and wr + 1 (odd
 #: width), one chain, a pair past a 32-pair chunk, and the widest merges of
-#: chip_smoke's lossless_sq on a shard of 8 (128 chains of 512 pairs)
+#: chip_smoke's lossless_sq on a shard of 8 (128 chains of 512 pairs);
+#: chains whose last segment is ragged at each segment length (8: 100
+#: pairs, 16: 500 pairs with wd = wr + 1, and 1100 pairs: three windows)
 SQ_SHAPES = [(1, 1, 0), (6, 1, 1), (6, 2, 1), (1, 9, 8), (7, 17, 16), (33, 33, 32),
-             (33, 41, 40), (31, 64, 64), (128, 512, 512), (130, 257, 256)]
+             (33, 41, 40), (31, 64, 64), (128, 512, 512), (130, 257, 256), (5, 100, 100),
+             (9, 501, 500), (3, 1101, 1100)]
 
 
 def _merge_views(horizontal, chains, wd, wr, values, seed, device):
@@ -974,6 +980,16 @@ def _merge_views(horizontal, chains, wd, wr, values, seed, device):
         full = full.to(device)
         views.append(full[:, 2:2 + n] if horizontal else full[:, 2:2 + chains])
     return views
+
+
+def _squeeze_model():
+    """tools/squeeze_model.py: S1's schedule modelled on the CPU."""
+    tools = str(Path(__file__).resolve().parents[1] / "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import squeeze_model
+
+    return squeeze_model
 
 
 @pytest.mark.parametrize("values", ["14bit", "int32"])
@@ -993,6 +1009,76 @@ def test_unsqueeze_vs_plain(cuda, horizontal, chains, wd, wr, values):
     torch.cuda.synchronize()
     assert K.launches["unsqueeze"] == 2 and got.is_contiguous()
     assert torch.equal(got.cpu(), want) and torch.equal(dense.cpu(), want)
+
+
+@pytest.mark.parametrize("horizontal", [True, False], ids=["h", "v"])
+def test_unsqueeze_ramp(cuda, horizontal):
+    """The slope -1 ramp with zero residuals at lossless_sq's widest shard
+    merge (128 chains of 512 pairs), on which no segment's two walks meet
+    (tools/squeeze_model.py): S1 walks the segments in order and equals its
+    plain version."""
+    from j40_tpu_torch.ops import squeeze_kernels as SQ
+
+    model_unsqueeze, ramp = _squeeze_model().model_unsqueeze, _squeeze_model().ramp
+
+    down, residu = (torch.from_numpy(a) for a in ramp(horizontal, 128, 512, 512))
+    want = SQ.unsqueeze_ref(down, residu, horizontal)
+    counts = model_unsqueeze(down, residu, horizontal)[1]
+    assert counts["unmet"] >= counts["segments"] - 2 * 128
+    K.reset_launches()
+    got = SQ.unsqueeze(down.to(cuda), residu.to(cuda), horizontal)
+    torch.cuda.synchronize()
+    assert K.launches["unsqueeze"] == 1 and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("horizontal", [True, False], ids=["h", "v"])
+def test_unsqueeze_mixed_margin(cuda, horizontal):
+    """One launch of 14-bit chains of three windows (1100 pairs) in which a
+    few hold a sample past the margin (2^26) in one window or both, and one
+    holds samples at the margin: S1 walks those windows in full and the
+    rest in segments, and equals its plain version; the model counts the
+    same five windows outside the margin."""
+    from j40_tpu_torch.ops import squeeze_kernels as SQ
+
+    SM = _squeeze_model()
+    MARGIN, merge_inputs, model_unsqueeze = SM.MARGIN, SM.merge_inputs, SM.model_unsqueeze
+
+    down, residu = merge_inputs(True, 40, 1101, 1100, "14bit", 11)
+    down[3, 100] = 1 << 30                 # window 0
+    residu[7, 1050] = -(1 << 29)           # window 2
+    down[12, 200], residu[12, 300] = MARGIN, -MARGIN  # at the margin: inside
+    down[13, 1090] = MARGIN + 1            # window 2
+    down[20, 1020:1025] = (1 << 31) - 1    # windows 1 and 2's staged samples
+    if not horizontal:
+        down, residu = down.T.copy(), residu.T.copy()
+    down, residu = torch.from_numpy(down), torch.from_numpy(residu)
+    want = SQ.unsqueeze_ref(down, residu, horizontal)
+    counts = model_unsqueeze(down, residu, horizontal)[1]
+    assert counts["margin_windows"] == 5 and counts["met"] > 0.9 * counts["segments"]
+    K.reset_launches()
+    got = SQ.unsqueeze(down.to(cuda), residu.to(cuda), horizontal)
+    torch.cuda.synchronize()
+    assert K.launches["unsqueeze"] == 1 and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("chains,wd,wr", [(128, 512, 512), (64, 1101, 1100)])
+@pytest.mark.parametrize("horizontal", [True, False], ids=["h", "v"])
+def test_unsqueeze_on_every_card(cuda, horizontal, chains, wd, wr):
+    """S1 on each card present, in turn, after a launch on the first: the
+    widest merges of each segment length (one window of 16, and three)
+    equal their plain version on every device, not only on the one that
+    launched first."""
+    from j40_tpu_torch.ops import squeeze_kernels as SQ
+
+    down, residu = _merge_views(horizontal, chains, wd, wr, "14bit", 3, "cpu")
+    want = SQ.unsqueeze_ref(down, residu, horizontal)
+    for i in [0, *range(torch.cuda.device_count())]:
+        dev = torch.device("cuda", i)
+        K.reset_launches()
+        got = SQ.unsqueeze(down.to(dev), residu.to(dev), horizontal)
+        torch.cuda.synchronize(dev)
+        assert K.launches["unsqueeze"] == 1 and got.device == dev
+        assert torch.equal(got.cpu(), want), i
 
 
 def test_unsqueeze_refuses(cuda):
@@ -1034,4 +1120,30 @@ def test_sharded_lossless_on_card(cuda):
     host = Decoder(data, backend="numpy", workers=2)
     host.decode_frame()
     np.testing.assert_array_equal(got, cpu)
+    np.testing.assert_array_equal(got, host.render_rgba8())
+
+
+def test_sharded_lossless_across_cards(cuda):
+    """decode_sharded_lossless on default_mesh(), a shard a card present: a
+    576x576 Squeeze + YCgCo stream, whose widest merges (288 pairs, on row
+    and on column shards) take S1's longer segments on every card; S1 once
+    a (merge, shard), bit-exact with the host plan."""
+    from j40_tpu_torch.encode.advanced import AdvancedOptions, encode_modular_advanced
+    from j40_tpu_torch.parallel import sharded_lossless as SL
+    from j40_tpu_torch.parallel.mesh import default_mesh
+
+    data = encode_modular_advanced(_lossless(576, 576, seed=77),
+                                   options=AdvancedOptions(squeeze=True, rct_type=6))
+    merges = SL.squeeze_merges(data)
+    assert {h for h, _, wr in merges if wr > 256} == {True, False}
+    mesh = default_mesh()
+    devices = list(mesh.devices.flat)
+    K.reset_launches()
+    got = SL.decode_sharded_lossless(data, mesh=mesh)
+    for d in devices:
+        torch.cuda.synchronize(d)
+    assert {k: v for k, v in K.launches.items() if v} == {
+        "unsqueeze": sum(min(chains, len(devices)) for _, chains, _ in merges)}
+    host = Decoder(data, backend="numpy", workers=2)
+    host.decode_frame()
     np.testing.assert_array_equal(got, host.render_rgba8())

@@ -136,7 +136,8 @@ def _imports(path: Path):
 @pytest.mark.parametrize(
     "path",
     sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                  ROOT / "examples" / "serve_device_torch.py"],
+                                  ROOT / "examples" / "serve_device_torch.py",
+                                  ROOT / "tools" / "squeeze_model.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_forbidden_imports(path):

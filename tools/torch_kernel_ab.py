@@ -46,7 +46,18 @@ B1; each library equal to the plain version (the torch-op loop on the
 card) in planes and flags; per library ns a step (a diagonal of the
 plane, or a step of the band's warp).  A copy must take this checkout's
 wavefront interface (the W1 and W2 entries have not changed since PR 11;
-W3's tree layout has).  `--sass` adds the instructions of one step of
+W3's tree layout has).  The S1 cases unsqueeze_h and unsqueeze_v run the
+merge kernel on shard 1's widest horizontal and vertical merge of
+chip_smoke.py's lossless_sq stream decoded on 8 shards of the card (it
+encodes the stream first), unsqueeze_ramp on the slope -1 ramp at
+unsqueeze_h's shape (20 calls queued as for B1, per library ns a pair of
+a chain), unsqueeze_shard1 on all 44 of shard 1's merges launched back to
+back (the main path's mix of merge sizes; 5 calls a turn, so that the
+host queues them all behind the sleep kernel), each library equal to the
+plain version; unsqueeze_decode is the whole decode of lossless_sq on 8
+shards of the card (host-bound: 3 decodes between CUDA events a turn,
+each library's output equal to the first decode's).  S1's C entry has
+not changed since it was added.  `--sass` adds the instructions of one step of
 each wavefront kernel instance, read from this checkout's SASS (`nvcc
 -cubin`, `cuobjdump -sass`: the distance between a step's shuffle groups,
 the median over the unrolled steps).  Prints one JSON line: per library
@@ -354,6 +365,72 @@ def wavefront_case(name: str, dev):
                              unit_key="ns_per_step")
 
 
+#: the S1 cases
+SQUEEZE = ("unsqueeze_h", "unsqueeze_v", "unsqueeze_ramp", "unsqueeze_shard1",
+           "unsqueeze_decode")
+_SQ: dict = {}
+
+
+def squeeze_case(name: str, dev):
+    """S1 on chip_smoke.py's rows' inputs: shard 1's widest horizontal
+    (unsqueeze_h) or vertical (unsqueeze_v, a column view) merge of
+    lossless_sq's decode on 8 shards of the card, captured by
+    chip_smoke.keep_merge_calls, or the slope -1 ramp with zero residuals
+    at unsqueeze_h's shape (unsqueeze_ramp), each checked equal to the
+    plain version (per library ns a pair of the merge's chains); all of
+    shard 1's merges (unsqueeze_shard1); the whole decode
+    (unsqueeze_decode)."""
+    import torch
+
+    import chip_smoke as CS
+    from j40_tpu_torch.ops import squeeze_kernels as SQ
+    from j40_tpu_torch.parallel.sharded_lossless import decode_sharded_lossless, squeeze_merges
+
+    mesh = CS.mesh_of(dev, CS.SHARDS)
+    if not _SQ:  # encoded and decoded once a process
+        _SQ["data"] = CS.lossless_sq_stream()
+        with CS.keep_merge_calls() as calls:
+            _SQ["first"] = decode_sharded_lossless(_SQ["data"], mesh=mesh)
+        _SQ.update(merges=squeeze_merges(_SQ["data"]), calls=calls)
+    merges, calls = _SQ["merges"], _SQ["calls"]
+    if name == "unsqueeze_decode":  # host-bound: 3 decodes between CUDA events
+        def decode():
+            return decode_sharded_lossless(_SQ["data"], mesh=mesh)
+
+        def check_decode() -> None:
+            assert (decode() == _SQ["first"]).all(), name
+
+        return decode, check_decode, dict(reps=3)
+    if name == "unsqueeze_shard1":  # shard 1's 44 merges back to back
+        mine = [c[:3] for c in calls[1:CS.SHARDS * len(merges):CS.SHARDS]]
+        wants = [SQ.unsqueeze_ref(*c) for c in mine]
+
+        def call_all():
+            return [SQ.unsqueeze(*c) for c in mine]
+
+        def check_all() -> None:
+            assert all(torch.equal(a, b) for a, b in zip(call_all(), wants)), name
+
+        return call_all, check_all, dict(merges=len(mine), reps=5, queued=True)
+    horizontal = name != "unsqueeze_v"
+    m = max((i for i, x in enumerate(merges) if x[0] == horizontal), key=lambda i: merges[i][2])
+    down, residu = calls[CS.SHARDS * m + 1][:2]
+    if name == "unsqueeze_ramp":
+        down, residu = (torch.from_numpy(a).to(dev) for a in CS.squeeze_model().ramp(
+            True, down.shape[0], down.shape[1], residu.shape[1]))
+    want = SQ.unsqueeze_ref(down, residu, horizontal)
+    wr = residu.shape[1 if horizontal else 0]
+
+    def call():
+        return SQ.unsqueeze(down, residu, horizontal)
+
+    def check() -> None:
+        assert torch.equal(call(), want), name
+
+    return call, check, dict(shape=[list(down.shape), list(residu.shape)], reps=20, queued=True,
+                             unit=wr, unit_key="ns_per_pair")
+
+
 def wavefront_step_instructions() -> dict:
     """Instructions between consecutive shuffle groups of this checkout's
     wavefront.cu, per kernel instance (the median over its unrolled
@@ -438,6 +515,8 @@ def run_case(case: str, libs: dict, others: list, pairs: int, sass: bool, dev) -
 
     if case.removesuffix("_band") in WAVEFRONTS:
         call, check, info = wavefront_case(case, dev)
+    elif case in SQUEEZE:
+        call, check, info = squeeze_case(case, dev)
     elif case == "epf_fused_12f":
         call, check, info = epf_case(dev)
     elif case.startswith("epf_step_rows_12f_k"):
