@@ -102,17 +102,21 @@ def main(argv=None) -> int:
 
         prof = trace(args.profile, device)
 
+    from .profile import clock, span, span_lines
+
     t0 = time.perf_counter()
     try:
         with prof:
+            start = clock(cpu=True)
             dec = Decoder(data, backend=args.backend, workers=args.workers,
                           apply_filters=args.filters, device=device)
-            frames = []  # (duration_ticks, rgba)
-            while not dec.done:
-                fr = dec.decode_frame()
-                if args.all_frames and (fr.header.duration > 0 or fr.header.is_last):
-                    frames.append((fr.header.duration, dec.render_rgba8()))
-            rgba = frames[-1][1] if frames else dec.render_rgba8()
+            with span(dec.stats, "request", start=start, cpu=True):
+                frames = []  # (duration_ticks, rgba)
+                while not dec.done:
+                    fr = dec.decode_frame()
+                    if args.all_frames and (fr.header.duration > 0 or fr.header.is_last):
+                        frames.append((fr.header.duration, dec.render_rgba8()))
+                rgba = frames[-1][1] if frames else dec.render_rgba8()
     except J40Error as e:
         print(f"Error: failed to decode `{args.input}`: {e}", file=sys.stderr)
         return 1
@@ -126,8 +130,12 @@ def main(argv=None) -> int:
               file=sys.stderr)
     if args.stats:
         for k, v in dec.stats.items():
-            print(f"  {k}: {v:.4f}" if isinstance(v, float) else f"  {k}: {v}",
-                  file=sys.stderr)
+            if k != "spans":
+                print(f"  {k}: {v:.4f}" if isinstance(v, float) else f"  {k}: {v}",
+                      file=sys.stderr)
+        print("  spans (name, ms, self ms):", file=sys.stderr)
+        for line in span_lines(dec.stats["spans"]):
+            print(f"    {line}", file=sys.stderr)
 
     if args.output:
         # port: PNG through png.py (no Pillow), whatever the file's extension

@@ -20,6 +20,7 @@ from .headers.icc import read_icc
 from .io.bits import BitReader
 from .limits import MAIN_LV5, Limits
 from .modular.decode import ModularImage
+from .profile import clock, request_id, span
 
 _POOL = None
 
@@ -46,10 +47,10 @@ class _FrameProgress:
         "hf_global_done", "done_sections", "t0",
     )
 
-    def __init__(self, header_bits: int, t0: float):
+    def __init__(self, header_bits: int, t0: tuple[int, int]):
         self.header_bits = header_bits
         self.body_bits = 0  # bit offset just past the TOC (single-size frames)
-        self.t0 = t0
+        self.t0 = t0  # profile.clock() (wall only) at the frame's first call
         self.f = None
         self.toc = None
         self.state = None
@@ -118,8 +119,9 @@ class Decoder:
         #: opt-in spot-colour compositing at render (the reference ignores
         #: spot channels; keeping the default off preserves render parity)
         self.render_spot = render_spot
-        #: per-stage wall times and stream facts, filled by decode_frame
-        self.stats: dict = {}
+        #: per-stage wall times and stream facts, filled by decode_frame;
+        #: "request" the decode's id, "spans" its span records (profile.py)
+        self.stats: dict = {"request": request_id()}
         #: streaming mode: tolerate a truncated container and keep mid-frame
         #: progress across push() (section-granular resume)
         self.streaming = streaming
@@ -194,25 +196,26 @@ class Decoder:
         stage runs but reconstruction is deferred: call `finish_frame()` to
         complete (used by the batched device pipeline in parallel.batch,
         which fuses many images' reconstructions into one dispatch)."""
-        import time
-
         check(not self.done, "excs", "no more frames in the codestream")
         im = self.image
         r = self.r
         if self._prog is None:
-            self._prog = _FrameProgress(r.bits_consumed, time.perf_counter())
+            self._prog = _FrameProgress(r.bits_consumed, clock())
         prog = self._prog
         if prog.f is None:
-            # a previously-interrupted header parse left r mid-way: rewind
-            r.seek_bits(prog.header_bits)
-            f = read_frame_header(r, im, self.limits)
-            if f.type != FRAME_REGULAR:
-                raise Unsupported(message="only regular frames supported")
-            toc = read_toc(r, f)
+            # the frame's first call starts the span; a call resumed after a
+            # short input ends it
+            with span(self.stats, "headers", start=prog.t0) as sp:
+                # a previously-interrupted header parse left r mid-way: rewind
+                r.seek_bits(prog.header_bits)
+                f = read_frame_header(r, im, self.limits)
+                if f.type != FRAME_REGULAR:
+                    raise Unsupported(message="only regular frames supported")
+                toc = read_toc(r, f)
             prog.f, prog.toc = f, toc
             prog.body_bits = r.bits_consumed
             self.stats.update(
-                headers_s=time.perf_counter() - prog.t0,
+                headers_s=sp.seconds,
                 frame=f"{f.width}x{f.height}",
                 mode="modular" if f.is_modular else "vardct",
                 num_groups=f.num_groups,
@@ -222,9 +225,21 @@ class Decoder:
             )
         f, toc = prog.f, prog.toc
         self.stats["codestream_bytes"] = self.src.available()
-        t_sections = time.perf_counter()
 
+        with span(self.stats, "sections") as sp:
+            state = self._decode_sections(f, toc, prog)
+        self.stats["sections_s"] = sp.seconds
+        if _defer_finish:
+            self._deferred = (f, toc, state)
+            return None
+        return self._finish_tail(f, toc, state)
+
+    def _decode_sections(self, f: FrameHeader, toc, prog: _FrameProgress):
+        """Decode the frame's sections; returns its FrameState."""
         from .frame_state import FrameState
+
+        im = self.image
+        r = self.r
 
         npasses = (
             f.num_passes
@@ -426,11 +441,7 @@ class Decoder:
                 )
             check(toc.end_codeoff <= self.src.available(), "shrt")
 
-        self.stats["sections_s"] = time.perf_counter() - t_sections
-        if _defer_finish:
-            self._deferred = (f, toc, state)
-            return None
-        return self._finish_tail(f, toc, state)
+        return state
 
     def finish_frame(self) -> Frame:
         """Complete a decode_frame(_defer_finish=True) call."""
@@ -439,27 +450,16 @@ class Decoder:
         return self._finish_tail(f, toc, state)
 
     def _finish_tail(self, f: FrameHeader, toc, state) -> Frame:
-        import time
-
         prog = self._prog
-        t_finish = time.perf_counter()
-        state.finish()
-        if self.keep_device_output:
-            self._device_planes = getattr(state.vardct, "device_planes", None) \
-                if state.vardct is not None else None
-        if f.log_upsampling or any(f.ec_log_upsampling):
-            self._upsample_frame(f, state.gmodular)
-        self.stats["reconstruct_s"] = time.perf_counter() - t_finish
-        self.stats["total_s"] = time.perf_counter() - prog.t0
-        try:
-            import resource
-            import sys as _sys
-
-            div = 1024 * 1024 if _sys.platform == "darwin" else 1024
-            self.stats["peak_rss_mb"] = round(
-                resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / div, 1)
-        except Exception:
-            pass
+        with span(self.stats, "finish") as sp:
+            state.finish()
+            if self.keep_device_output:
+                self._device_planes = getattr(state.vardct, "device_planes", None) \
+                    if state.vardct is not None else None
+            if f.log_upsampling or any(f.ec_log_upsampling):
+                self._upsample_frame(f, state.gmodular)
+        self.stats["reconstruct_s"] = sp.seconds
+        self.stats["total_s"] = (sp.end_ns - prog.t0[0]) * 1e-9
         # position the main reader at the next frame's byte boundary and
         # drop its header window (bounded memory over large files)
         self.r.rebase(toc.end_codeoff)
@@ -664,6 +664,10 @@ class Decoder:
         return out.permute(1, 2, 0).contiguous()
 
     def _render(self, depth: int) -> np.ndarray:
+        with span(self.stats, "render"):
+            return self._render_canvas(depth)
+
+    def _render_canvas(self, depth: int) -> np.ndarray:
         im = self.image
         f = self.frame
         assert f is not None and f.canvas is not None
@@ -849,11 +853,13 @@ def decode_file(path_or_bytes, backend: str = "torch",
     blending chain is honored; single-frame files behave as before).
 
     port: `device` (default CUDA) and `workers` pass through to Decoder."""
-    dec = Decoder(_read_input(path_or_bytes), backend=backend, limits=limits,
-                  device=device, workers=workers)
-    while not dec.done:
-        dec.decode_frame()
-    rgba = dec.render_rgba8()
+    data = _read_input(path_or_bytes)
+    start = clock(cpu=True)
+    dec = Decoder(data, backend=backend, limits=limits, device=device, workers=workers)
+    with span(dec.stats, "request", start=start, cpu=True):
+        while not dec.done:
+            dec.decode_frame()
+        rgba = dec.render_rgba8()
     dec.frame.rgba = rgba
     return dec, rgba
 

@@ -36,6 +36,7 @@ import torch
 
 from ..entropy.ans import DIST_BITS
 from ..entropy.code import CodeSpec
+from ..profile import upload
 
 #: the most hybrid-int extra bits one symbol may read: the kernels refill
 #: their bit buffer to at least 16 renormalization bits plus these
@@ -266,7 +267,7 @@ def _long(x, device) -> torch.Tensor:
     """int64 tensor of `x` (a tensor or array-like; numpy uint32 included)."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.int64)
-    return torch.from_numpy(np.asarray(x).astype(np.int64)).to(device)
+    return upload(np.asarray(x).astype(np.int64), device)
 
 
 def decode_tokens(words, skip_bits, nsym, sym_lut, fb_lut, mb_lut, a_lut,

@@ -35,8 +35,6 @@ counterpart (the token kernel takes every spec the lane rules admit).
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -44,6 +42,7 @@ from ..entropy.ans import ANS_INIT_STATE
 from ..errors import check
 from ..io.bits import BitReader
 from ..modular.decode import Channel, ModularImage, parse_modular_header
+from ..profile import fetch, span, upload
 from . import token_kernels as TKN
 from . import wavefront_kernels as WK
 from .device_entropy import (
@@ -231,20 +230,24 @@ def pack_lanes(lanes) -> dict:
     """The token kernel's packed inputs (numpy) of a batch of lanes: one
     table row per distinct spec, per-token cluster ids for static-tree
     (`ctx`) lanes."""
-    cids = None
-    if lanes[0].ctx is not None:
-        cids = [np.concatenate([slot["cluster"].ravel() for slot in ln.ctx])
-                for ln in lanes]
-    return TKN.build_lane_inputs([(ln.data, ln.bitoff) for ln in lanes],
-                                 [ln.nsym for ln in lanes],
-                                 [ln.spec for ln in lanes], cids)
+    with span(None, "modular.pack"):
+        cids = None
+        if lanes[0].ctx is not None:
+            cids = [np.concatenate([slot["cluster"].ravel() for slot in ln.ctx])
+                    for ln in lanes]
+        return TKN.build_lane_inputs([(ln.data, ln.bitoff) for ln in lanes],
+                                     [ln.nsym for ln in lanes],
+                                     [ln.spec for ln in lanes], cids)
 
 
 def _decode_tokens(dec, lanes):
     """Every lane's token values on the card, in one call of the token
-    kernel's wrapper: (values (L, n_steps) int32, final states, final bit positions),
-    device tensors."""
-    return TKN.launch_tokens(to_device(pack_lanes(lanes), dec.device))
+    kernel's wrapper: (values (L, n_steps) int32, final states, final bit
+    positions), device tensors, and the `modular.setup` span of the packing,
+    the uploads and the launch, whose end is that of `setup_s`."""
+    with span(dec.stats, "modular.setup") as setup:
+        out = TKN.launch_tokens(to_device(pack_lanes(lanes), dec.device))
+    return (*out, setup)
 
 
 def _range_check(gm, rec, n: int):
@@ -257,39 +260,42 @@ def _range_check(gm, rec, n: int):
 
 
 def _finish_batch(dec, gm, lanes, pending, fstates, bitpos, use_prefix: bool,
-                  route: str, count_key: str, t0: float, t_setup: float) -> list:
+                  route: str, count_key: str, batch: span, setup: span) -> list:
     """One batched fetch of the planes, flags and finals; the per-lane end
-    checks and the write-back; the stats.  Returns the lanes written (WP
+    checks and the write-back; the stats, whose clocks are the batch's
+    spans: `setup_s` from the start of `modular.batch` to the end of
+    `modular.setup`, `scan_fetch_s` from there to the start of
+    `modular.write`, `write_s` that span.  Returns the lanes written (WP
     overflow lanes are left to the host)."""
     parts = ([p[2] for p in pending] + [p[3] for p in pending]
              + [p[4] for p in pending] + [fstates, bitpos])
     sizes = [t.numel() for t in parts]
-    flat = torch.cat([t.reshape(-1).to(torch.int32) for t in parts]).cpu().numpy()
+    flat = fetch(torch.cat([t.reshape(-1).to(torch.int32) for t in parts])).numpy()
     fetched = np.split(flat, np.cumsum(sizes)[:-1])
     n = len(pending)
     planes = [f.reshape(p[2].shape) for f, p in zip(fetched[:n], pending)]
     bads, ovfs = fetched[n:2 * n], fetched[2 * n:3 * n]
     fstates_h, bitpos_h = fetched[-2], fetched[-1]
-    t_fetch = time.perf_counter()
 
-    # WP error-state overflow sentinel (ops/device_entropy.py): affected
-    # lanes are NOT written or validated here — the caller leaves their
-    # sections to the host path, which decodes them with full-width math
-    failed = {li for (lis, _, _, _, _), ovf in zip(pending, ovfs)
-              for k, li in enumerate(lis) if ovf[k]}
-    for li, ln in enumerate(lanes):
-        if li in failed:
-            continue
-        base = (ln.bitoff // 8) & ~1
-        _check_lane_end(ln, base * 8 + int(bitpos_h[li]), use_prefix,
-                        int(fstates_h[li]) & 0xFFFFFFFF)
-    for (lis, slot, _, _, _), plane, bad in zip(pending, planes, bads):
-        for k, li in enumerate(lis):
+    with span(dec.stats, "modular.write") as write:
+        # WP error-state overflow sentinel (ops/device_entropy.py): affected
+        # lanes are NOT written or validated here — the caller leaves their
+        # sections to the host path, which decodes them with full-width math
+        failed = {li for (lis, _, _, _, _), ovf in zip(pending, ovfs)
+                  for k, li in enumerate(lis) if ovf[k]}
+        for li, ln in enumerate(lanes):
             if li in failed:
                 continue
-            check(not bad[k], "povf", "modular sample overflows int16 range")
-            gi, x0, y0, w, h = lanes[li].picks[slot]
-            gm.channels[gi].data[y0 : y0 + h, x0 : x0 + w] = plane[k]
+            base = (ln.bitoff // 8) & ~1
+            _check_lane_end(ln, base * 8 + int(bitpos_h[li]), use_prefix,
+                            int(fstates_h[li]) & 0xFFFFFFFF)
+        for (lis, slot, _, _, _), plane, bad in zip(pending, planes, bads):
+            for k, li in enumerate(lis):
+                if li in failed:
+                    continue
+                check(not bad[k], "povf", "modular sample overflows int16 range")
+                gi, x0, y0, w, h = lanes[li].picks[slot]
+                gm.channels[gi].data[y0 : y0 + h, x0 : x0 + w] = plane[k]
 
     stats = dec.stats.setdefault("device_modular", {})
     stats["kernel"] = route
@@ -298,9 +304,10 @@ def _finish_batch(dec, gm, lanes, pending, fstates, bitpos, use_prefix: bool,
     # one plane batch per (class, slot); the wavefront launches are
     # counted where the route makes them (_launch_groups)
     stats["reconstructions"] = stats.get("reconstructions", 0) + len(pending)
-    stats["setup_s"] = stats.get("setup_s", 0.0) + (t_setup - t0)
-    stats["scan_fetch_s"] = stats.get("scan_fetch_s", 0.0) + (t_fetch - t_setup)
-    stats["write_s"] = stats.get("write_s", 0.0) + (time.perf_counter() - t_fetch)
+    stats["setup_s"] = stats.get("setup_s", 0.0) + (setup.end_ns - batch.start_ns) * 1e-9
+    stats["scan_fetch_s"] = (stats.get("scan_fetch_s", 0.0)
+                             + (write.start_ns - setup.end_ns) * 1e-9)
+    stats["write_s"] = stats.get("write_s", 0.0) + write.seconds
     return [ln for li, ln in enumerate(lanes) if li not in failed]
 
 
@@ -336,13 +343,11 @@ def _launch_groups(dec, shapes, kinds, run, n: int) -> dict:
     return out
 
 
-def _decode_lane_batch(dec, gm, lanes, use_prefix: bool):
+def _decode_lane_batch(dec, gm, lanes, use_prefix: bool, batch: span):
     """Decode one same-coder batch of single-leaf lanes and write the
     planes."""
-    t0 = time.perf_counter()
     dev = dec.device
-    vals, fstates, bitpos = _decode_tokens(dec, lanes)
-    t_setup = time.perf_counter()
+    vals, fstates, bitpos, setup = _decode_tokens(dec, lanes)
 
     # --- per-shape-class wavefront reconstruction -------------------------
     classes: dict[tuple, list[int]] = {}
@@ -355,7 +360,7 @@ def _decode_lane_batch(dec, gm, lanes, use_prefix: bool):
 
     pending = []  # (lane indices, pick slot, plane batch, bad flag, ovf flag)
     for (predictor, mult, offset, shapes, wp_params), lis in classes.items():
-        rows = torch.tensor(lis, device=dev)
+        rows = upload(np.asarray(lis, np.int64), dev)
         n = len(lis)
         res, off = [], 0
         for w, h in shapes:
@@ -383,19 +388,17 @@ def _decode_lane_batch(dec, gm, lanes, use_prefix: bool):
             rec, bad = _range_check(gm, recs[slot][0], n)
             pending.append((lis, slot, rec, bad, recs[slot][1]))
     return _finish_batch(dec, gm, lanes, pending, fstates, bitpos, use_prefix,
-                         _route(dec), "lanes", t0, t_setup)
+                         _route(dec), "lanes", batch, setup)
 
 
-def _decode_lane_batch_ctx(dec, gm, lanes, use_prefix: bool):
+def _decode_lane_batch_ctx(dec, gm, lanes, use_prefix: bool, batch: span):
     """Decode multi-context (static-property MA tree) lanes: per-token
     cluster ids select the table block inside the token kernel, and
     reconstruction uses the per-pixel predictor wavefront
     (`mixed_reconstruct`, or the WP one) with per-pixel offset and
     multiplier."""
-    t0 = time.perf_counter()
     dev = dec.device
-    vals, fstates, bitpos = _decode_tokens(dec, lanes)
-    t_setup = time.perf_counter()
+    vals, fstates, bitpos, setup = _decode_tokens(dec, lanes)
 
     classes: dict[tuple, list[int]] = {}
     for li, ln in enumerate(lanes):
@@ -404,7 +407,7 @@ def _decode_lane_batch_ctx(dec, gm, lanes, use_prefix: bool):
 
     pending = []
     for (shapes, wp_params), lis in classes.items():
-        rows = torch.tensor(lis, device=dev)
+        rows = upload(np.asarray(lis, np.int64), dev)
         n = len(lis)
         zero = torch.zeros(n, dtype=torch.bool, device=dev)
         res, preds, kinds, off = [], [], [], 0
@@ -414,9 +417,9 @@ def _decode_lane_batch_ctx(dec, gm, lanes, use_prefix: bool):
             mult, offp, pred = plane("mult"), plane("offset"), plane("pred")
             r = r.reshape(n, h, w)
             if (mult != 1).any():
-                r = r * torch.from_numpy(mult).to(dev)
+                r = r * upload(mult, dev)
             if offp.any():
-                r = r + torch.from_numpy(offp).to(dev)
+                r = r + upload(offp, dev)
             res.append(r)
             preds.append(pred)
             # per-SLOT wavefront choice: a tree may gate WP behind (say) a
@@ -435,7 +438,7 @@ def _decode_lane_batch_ctx(dec, gm, lanes, use_prefix: bool):
             batch = _stack(res, group)
             if kind == 5:
                 return reconstruct_channel(batch, 5, h, w), zero.repeat(len(group))
-            pcode = torch.from_numpy(np.concatenate([preds[s] for s in group])).to(dev)
+            pcode = upload(np.concatenate([preds[s] for s in group]), dev)
             if kind == "wp":
                 return wp_reconstruct_ovf(batch, pcode, h, w, wp_params)
             return mixed_reconstruct(batch, pcode, h, w), zero.repeat(len(group))
@@ -448,19 +451,17 @@ def _decode_lane_batch_ctx(dec, gm, lanes, use_prefix: bool):
             rec, bad = _range_check(gm, recs[slot][0], n)
             pending.append((lis, slot, rec, bad, recs[slot][1]))
     return _finish_batch(dec, gm, lanes, pending, fstates, bitpos, use_prefix,
-                         f"{_route(dec)}-ctx", "ctx_lanes", t0, t_setup)
+                         f"{_route(dec)}-ctx", "ctx_lanes", batch, setup)
 
 
-def _decode_lane_batch_ntree(dec, gm, lanes, use_prefix: bool):
+def _decode_lane_batch_ntree(dec, gm, lanes, use_prefix: bool, batch: span):
     """NEIGHBOR-property-tree lanes: tokens decode context-free (single
     cluster), then every pick slot reconstructs through the in-wavefront
     tree walk (device_entropy._tree_wp_reconstruct): per-pixel
     predictor/offset/multiplier from properties 0-15 evaluated on the
     d = 2y+x diagonals, bit-exact vs the host walk."""
-    t0 = time.perf_counter()
     dev = dec.device
-    vals, fstates, bitpos = _decode_tokens(dec, lanes)
-    t_setup = time.perf_counter()
+    vals, fstates, bitpos, setup = _decode_tokens(dec, lanes)
 
     # classes: one (tree, wp, shapes) program per slot; sidx per lane
     classes: dict[tuple, list[int]] = {}
@@ -471,10 +472,9 @@ def _decode_lane_batch_ntree(dec, gm, lanes, use_prefix: bool):
 
     pending = []
     for (tree_key, wp_params, shapes), lis in classes.items():
-        rows = torch.tensor(lis, device=dev)
+        rows = upload(np.asarray(lis, np.int64), dev)
         n = len(lis)
-        sidx = torch.tensor([lanes[li].ntree[1] for li in lis], dtype=torch.int32,
-                            device=dev)
+        sidx = upload(np.asarray([lanes[li].ntree[1] for li in lis], np.int32), dev)
         res, off = [], 0
         for w, h in shapes:
             res.append(unpack_signed_dev(vals[rows, off : off + w * h]).reshape(n, h, w))
@@ -483,7 +483,7 @@ def _decode_lane_batch_ntree(dec, gm, lanes, use_prefix: bool):
         def run(group, _, h, w):
             # one launch for the class's slots of a shape; the channel index
             # of a plane is its pick slot (RGB channels 0..2)
-            cidx = torch.tensor(group, dtype=torch.int32, device=dev).repeat_interleave(n)
+            cidx = upload(np.asarray(group, np.int32), dev).repeat_interleave(n)
             return tree_wp_reconstruct(_stack(res, group), tree_key, cidx,
                                        sidx.repeat(len(group)), h, w, wp_params)
 
@@ -492,7 +492,7 @@ def _decode_lane_batch_ntree(dec, gm, lanes, use_prefix: bool):
             rec, bad = _range_check(gm, recs[slot][0], n)
             pending.append((lis, slot, rec, bad, recs[slot][1]))
     return _finish_batch(dec, gm, lanes, pending, fstates, bitpos, use_prefix,
-                         f"{_route(dec)}+tree-wavefront", "ntree_lanes", t0, t_setup)
+                         f"{_route(dec)}+tree-wavefront", "ntree_lanes", batch, setup)
 
 
 def plan_lanes(dec, state, sections) -> list:
@@ -507,28 +507,23 @@ def try_device_pass_groups(dec, state, f, sections) -> list:
     Ineligible sections are skipped and left for the host path."""
     if not sections or state.gmodular is None:
         return []
-    lanes = plan_lanes(dec, state, sections)
+    with span(dec.stats, "modular.plan"):
+        lanes = plan_lanes(dec, state, sections)
     if not lanes:
         return []
     gm = state.gmodular
     out = []
     for use_prefix in (True, False):
-        batch = [ln for ln in lanes
-                 if ln.spec.use_prefix_code == use_prefix
-                 and ln.ctx is None and ln.ntree is None]
-        if batch:
-            ok = _decode_lane_batch(dec, gm, batch, use_prefix)
-            out.extend(ln.section for ln in ok)
-        cbatch = [ln for ln in lanes
-                  if ln.spec.use_prefix_code == use_prefix
-                  and ln.ctx is not None]
-        if cbatch:
-            ok = _decode_lane_batch_ctx(dec, gm, cbatch, use_prefix)
-            out.extend(ln.section for ln in ok)
-        nbatch = [ln for ln in lanes
-                  if ln.spec.use_prefix_code == use_prefix
-                  and ln.ntree is not None]
-        if nbatch:
-            ok = _decode_lane_batch_ntree(dec, gm, nbatch, use_prefix)
+        for decode, kind in ((_decode_lane_batch, lambda ln: ln.ctx is None and ln.ntree is None),
+                             (_decode_lane_batch_ctx, lambda ln: ln.ctx is not None),
+                             (_decode_lane_batch_ntree, lambda ln: ln.ntree is not None)):
+            batch = [ln for ln in lanes if ln.spec.use_prefix_code == use_prefix and kind(ln)]
+            if not batch:
+                continue
+            # a batch is one launch of the token kernel B6, as long as its
+            # longest lane
+            with span(dec.stats, "modular.batch",
+                      longest_lane=max(ln.nsym for ln in batch)) as sp:
+                ok = decode(dec, gm, batch, use_prefix, sp)
             out.extend(ln.section for ln in ok)
     return out

@@ -36,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..profile import upload
 from ..vardct.tables import TWICE_COEFF_FREQ_CTX, TWICE_COEFF_NNZ_CTX
 from . import kernels as K
 from .device_entropy import (
@@ -245,13 +246,13 @@ def build_ctx_inputs(streams, ncells, spec, bctx3_per_lane, gw8s, ctxoffs,
 
 def to_device(inp: dict, device) -> dict:
     """Tensors on `device` for the arrays of a packed input (the words as
-    int16, which the kernels read as uint16)."""
+    int16, which the kernels read as uint16), one blocking upload each."""
     dev = torch.device(device)
     out = dict(inp)
     for k, v in inp.items():
         if isinstance(v, np.ndarray):
             a = v.view(np.int16) if v.dtype == np.uint16 else v
-            out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            out[k] = upload(a, dev)
     return out
 
 

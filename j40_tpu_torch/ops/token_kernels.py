@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..profile import scalar
 from . import kernels as K
 from .device_entropy import (
     ans_luts,
@@ -141,7 +142,7 @@ def _check_inputs(words, skip_bits, nsym, cids, sym, fb, mb, a, lo, lsb, rows,
     # outside them
     for name, t, hi in (("rows", rows, R), ("cids", cids, C)):
         if t is not None and t.numel():
-            lo_v, hi_v = (int(v) for v in torch.aminmax(t))
+            lo_v, hi_v = (scalar(v) for v in torch.aminmax(t))
             if lo_v < 0 or hi_v >= hi:
                 raise ValueError(f"{name} in [{lo_v}, {hi_v}]: want [0, {hi})")
     return C, S, F, amax

@@ -43,6 +43,7 @@ import functools
 import numpy as np
 import torch
 
+from ..profile import upload
 from . import device_entropy as DE
 from . import kernels as K
 
@@ -182,7 +183,7 @@ def _device_tree(tree_key, device: torch.device) -> torch.Tensor:
     if len(tree_key) > most:
         raise ValueError(f"tree: {len(tree_key)} nodes, more than the {most} that fit "
                          f"in shared memory")
-    return torch.from_numpy(_tree_pack(tree_key)).to(device)
+    return upload(_tree_pack(tree_key), device)
 
 
 def tree_wavefront(res, tree_key, cidx, sidx, height: int, width: int, params):

@@ -219,6 +219,22 @@ def test_stats_and_time_lines(streams, tmp_path, capsys):
     assert "Mpix/s)" in err.splitlines()[1]
 
 
+def test_stats_print_the_spans(streams, capsys):
+    """--stats prints each span of the decode as `name  ms  self-ms`, one
+    line each under the root `request`, not the raw records."""
+    assert torch_main([str(streams["modular"]), "--device", "cpu", "--backend", "device",
+                       "--stats"]) == 0
+    err = capsys.readouterr().err.splitlines()
+    at = err.index("  spans (name, ms, self ms):")
+    rows = [ln.split() for ln in err[at + 1:]]
+    assert rows and rows[0][0] == "request" and err[at + 1].startswith("    request  ")
+    names = [r[0] for r in rows]
+    assert names == ["request", "headers", "sections", "finish", "render"]  # one section
+    for r in rows:
+        assert len(r) == 3 and 0 <= float(r[2]) <= float(r[1])
+    assert not any(ln.lstrip().startswith("spans:") for ln in err)
+
+
 def test_no_cuda_stops_and_writes_nothing(streams, tmp_path):
     """Without a CUDA device and without --device cpu the CLI stops: rc 1,
     stderr names CUDA, no output file; --info needs no device."""

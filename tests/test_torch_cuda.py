@@ -1147,3 +1147,42 @@ def test_sharded_lossless_across_cards(cuda):
     host = Decoder(data, backend="numpy", workers=2)
     host.decode_frame()
     np.testing.assert_array_equal(got, host.render_rgba8())
+
+
+@pytest.mark.parametrize("name", ["plain_ans_global", "static_ans", "e3_ans_global"])
+def test_spans_hold_every_copy_on_the_trace_clock(cuda, name):
+    """`decode_file(backend="device")` on the card under a profiler session:
+    the copies' spans and the trace's HtoD/DtoH Memcpy records, both in
+    program order (one thread, one stream), pair one to one by direction,
+    so no blocking copy of the route escapes its span; each record lies in
+    its span, and each token-kernel record starts in a `modular.batch` span,
+    within `CLOCKS_NS`: the profiler's device timestamps and
+    `time.time_ns()` disagreed by up to 2.4 ms within one session on the
+    card's host, more than a copy lasts on an idle card (PERF.md §5)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from j40_tpu_torch.decode import decode_file
+    from j40_tpu_torch.profile import SETTLE_KERNEL, settle
+
+    CLOCKS_NS = 3_000_000
+    data = _modular(name)
+    decode_file(data, backend="device", device=cuda)  # builds, loads, caches the trees
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        settle()
+        dec, _ = decode_file(data, backend="device", device=cuda)
+        torch.cuda.synchronize()
+    recs = sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA and SETTLE_KERNEL not in e.name())
+    spans = dec.stats["spans"]
+    copies = sorted((s[2], s[3], s[0][5:]) for s in spans if s[0].startswith("copy."))
+    mem = [(a, b, n[7:11].lower()) for a, b, n in recs
+           if n.startswith(("Memcpy HtoD", "Memcpy DtoH"))]
+    assert [d for *_, d in mem] == [d for *_, d in copies] and copies, (mem, copies)
+    for (a, b, _), (s, e, _) in zip(mem, copies):
+        assert s - CLOCKS_NS <= a and b <= e + CLOCKS_NS, (a - s, e - b)
+    batches = [(s[2], s[3]) for s in spans if s[0] == "modular.batch"]
+    tokens = [a for a, _, n in recs if "tokens_" in n and "setup" not in n]
+    assert tokens and all(any(s - CLOCKS_NS <= a <= e + CLOCKS_NS for s, e in batches)
+                          for a in tokens)
