@@ -110,7 +110,7 @@ def main(argv=None) -> int:
             start = clock(cpu=True)
             dec = Decoder(data, backend=args.backend, workers=args.workers,
                           apply_filters=args.filters, device=device)
-            with span(dec.stats, "request", start=start, cpu=True):
+            with span(dec.stats, "request", start=start, cpu=True, stream=0):
                 frames = []  # (duration_ticks, rgba)
                 while not dec.done:
                     fr = dec.decode_frame()

@@ -21,6 +21,7 @@ from .io.bits import BitReader
 from .limits import MAIN_LV5, Limits
 from .modular.decode import ModularImage
 from .profile import clock, request_id, span
+from .streams import carry, own_stream
 
 _POOL = None
 
@@ -317,7 +318,7 @@ class Decoder:
                 # 2048x2048 region with its own entropy streams); the lazy
                 # dq-matrix/order materialization they trigger is serialized
                 # inside VarDCTState (j40.h:7694-7732 analog)
-                list(_pool().map(_one_lf_group, lf_run))
+                list(_pool().map(carry(_one_lf_group, self.device), lf_run))
             else:
                 for s in lf_run:
                     _one_lf_group(s)
@@ -426,7 +427,7 @@ class Decoder:
                         state.vardct.dispatch_group_async(ggidx)
 
             if self.workers > 1 and len(run_chains) > 1:
-                list(_pool().map(_one_group_chain, run_chains))
+                list(_pool().map(carry(_one_group_chain, self.device), run_chains))
             else:
                 for chain in run_chains:
                     _one_group_chain(chain)
@@ -852,11 +853,14 @@ def decode_file(path_or_bytes, backend: str = "torch",
     """Decode to the final displayed frame (all frames are processed so the
     blending chain is honored; single-frame files behave as before).
 
-    port: `device` (default CUDA) and `workers` pass through to Decoder."""
+    port: `device` (default CUDA) and `workers` pass through to Decoder; on
+    a CUDA device the decode runs on the calling thread's own stream
+    (streams.own_stream), whose index the `request` span counts."""
     data = _read_input(path_or_bytes)
     start = clock(cpu=True)
     dec = Decoder(data, backend=backend, limits=limits, device=device, workers=workers)
-    with span(dec.stats, "request", start=start, cpu=True):
+    with own_stream(dec.device) as stream, \
+            span(dec.stats, "request", start=start, cpu=True, stream=stream):
         while not dec.done:
             dec.decode_frame()
         rgba = dec.render_rgba8()
@@ -871,11 +875,16 @@ def decode_animation(
 
     Returns (decoder, [(duration_ticks, rgba), ...]); frames with duration 0
     that are not last are compositing intermediates and are not emitted
-    (spec §5.3).  Tick rate is `decoder.image.anim_tps_num / anim_tps_denom`."""
-    dec = Decoder(_read_input(path_or_bytes), backend=backend, device=device)
+    (spec §5.3).  Tick rate is `decoder.image.anim_tps_num / anim_tps_denom`.
+    On a CUDA device the decode runs as decode_file's does."""
+    data = _read_input(path_or_bytes)
+    start = clock(cpu=True)
+    dec = Decoder(data, backend=backend, device=device)
     frames: list[tuple[int, np.ndarray]] = []
-    while not dec.done:
-        fr = dec.decode_frame()
-        if fr.header.duration > 0 or fr.header.is_last:
-            frames.append((fr.header.duration, dec.render_rgba8()))
+    with own_stream(dec.device) as stream, \
+            span(dec.stats, "request", start=start, cpu=True, stream=stream):
+        while not dec.done:
+            fr = dec.decode_frame()
+            if fr.header.duration > 0 or fr.header.is_last:
+                frames.append((fr.header.duration, dec.render_rgba8()))
     return dec, frames

@@ -19,11 +19,10 @@ numpy; `to_device` makes tensors of them.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
+from ..streams import device_cache, shared
 from ..vardct import special
 from ..vardct.tables import DCT_SELECT, QM_SCALE
 from . import filter_kernels, kernels
@@ -31,7 +30,8 @@ from .filters import epf_params, epf_rs8
 from .reconstruct import cfl_batch, dequant_hf_batch, idct2d_batch
 
 # small on-device caches for constant tables, keyed by content: these arrays
-# repeat across decodes (library dequant weights, opsin constants)
+# repeat across decodes (library dequant weights, opsin constants); decodes
+# on several streams read them (streams.shared)
 _DEVICE_CACHE: dict = {}
 
 
@@ -41,7 +41,7 @@ def _cached_device(key, np_arr: np.ndarray, device: torch.device) -> torch.Tenso
     if ent is None or ent[0] != np_arr.tobytes():
         ent = (np_arr.tobytes(), torch.from_numpy(np.ascontiguousarray(np_arr)).to(device))
         _DEVICE_CACHE[k] = ent
-    return ent[1]
+    return shared(ent[1])
 
 
 # dctsel values handled by dense 64x64 matrices; vardct/special.py (pure
@@ -49,7 +49,7 @@ def _cached_device(key, np_arr: np.ndarray, device: torch.device) -> torch.Tenso
 _SPECIAL_FNS = frozenset(special._SPECIAL_FNS)
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache(maxsize=None)
 def _special_on(dctsel: int, device: torch.device) -> torch.Tensor:
     m = np.asarray(special.special_matrix(dctsel), np.float32)
     return torch.from_numpy(np.ascontiguousarray(m)).to(device)

@@ -14,22 +14,22 @@ plain versions that ops/kernels.py holds beside each CUDA kernel.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
+from ..streams import device_cache
 from ..vardct.dct import forward_matrix, inverse_matrix, lf2llf_scales
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache(maxsize=None)
 def _matrix(kind: str, n: int, device: torch.device) -> torch.Tensor:
-    """Basis matrices on `device`, made once per (kind, size, device)."""
+    """Basis matrices on `device`, made once per (kind, size, device) and
+    read by decodes on several streams."""
     mats = {"g": inverse_matrix, "f": forward_matrix}
     return torch.from_numpy(np.ascontiguousarray(mats[kind](n))).to(device)
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache(maxsize=None)
 def _llf_scales(log_rows: int, log_columns: int,
                 device: torch.device) -> torch.Tensor:
     s = lf2llf_scales(log_rows - 3)[:, None] * lf2llf_scales(log_columns - 3)[None, :]

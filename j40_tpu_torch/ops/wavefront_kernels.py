@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..profile import upload
+from ..streams import device_cache
 from . import device_entropy as DE
 from . import kernels as K
 
@@ -175,9 +176,10 @@ def _tree_pack(tree_key) -> np.ndarray:
     return packed.astype(np.int32)
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(maxsize=64)
 def _device_tree(tree_key, device: torch.device) -> torch.Tensor:
-    """A tree's packed nodes on the card, copied once a (tree, device);
+    """A tree's packed nodes on the card, copied once a (tree, device) and
+    read by decodes on several streams;
     raises on a tree larger than the kernel's shared memory holds."""
     most = limits()["tree_nodes"]
     if len(tree_key) > most:

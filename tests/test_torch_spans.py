@@ -4,10 +4,10 @@ backend="device", device="cpu")`, the entry the benchmark drives.
 
 Checked: the span tree (every child inside its parent, one root `request`
 a decode, a request id a Decoder, the names of the route's layers and
-the one count, each B6 launch's longest lane), the stage clocks equal to
-their spans' lengths, the boundaries of the Modular route's `setup_s` /
-`scan_fetch_s` / `write_s` (what runs inside each), a torch.profiler
-session on the spans' clock, and concurrent decodes on their own threads
+the counts: each B6 launch's longest lane, the request's stream), the
+stage clocks equal to their spans' lengths, the boundaries of the Modular
+route's `setup_s` / `scan_fetch_s` / `write_s` (what runs inside each), a
+torch.profiler session on the spans' clock, and concurrent decodes on their own threads
 each recording only into their own spans.
 """
 
@@ -82,7 +82,10 @@ def test_span_tree_and_stage_clocks(name, monkeypatch):
     batches = _named(spans, "modular.batch")
     assert [b[COUNTS] for b in batches] == [{"longest_lane": n} for n in longest]
     assert 0 < max(longest) and sum(longest) <= dm["tokens"]
-    assert all(s[COUNTS] is None for s in spans if s[NAME] != "modular.batch")
+    # and the request's stream: 0, the caller's, on the CPU
+    assert [s[COUNTS] for s in _named(spans, "request")] == [{"stream": 0}]
+    assert all(s[COUNTS] is None for s in spans
+               if s[NAME] not in ("modular.batch", "request"))
 
     # the stage clocks are their spans' lengths
     (hd,), (sec,), (fin,) = (_named(spans, n) for n in ("headers", "sections", "finish"))
