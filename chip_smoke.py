@@ -39,9 +39,13 @@ which raises on failure (the script then exits non-zero):
    from a seed by the port's encoder, decoded by `decode_file(data,
    workers=4)` on the card and held within 1 gray level of the port's host
    plan (`backend="numpy"`); then the restoration-filter path,
-   `Decoder(data, apply_filters=True, workers=4)`, on config 12F (config
-   4's image, all DCT8, custom gaborish and 3-step EPF) and on config 4,
-   each held against the host plan with the same filters; then the
+   `decode_file(data, workers=4, apply_filters=True)`, on config 12F
+   (config 4's image, all DCT8, custom gaborish and 3-step EPF) and on
+   config 4, each held against the host plan with the same filters at
+   least FILTER_REACH pixels from an LF-group border (the card filters the
+   whole frame, the host plan each LF group apart), with the host plan's
+   gap at the borders more than 1 level, and against the sharded plan on
+   one shard over the whole frame; then the
    whole-plane EPF of a plane whose sides are not multiples of 8
    (`filter_kernels.epf_device`, the single-step kernel); then
    `decode_file(data, backend="device", workers=4)` (the HF entropy of
@@ -2089,16 +2093,11 @@ def batch_kernel_rows(streams: dict, dev) -> list[dict]:
 
 
 def _decode(data: bytes, backend: str = "torch", filters: bool = False):
-    """decode_file, or with the restoration filters the Decoder calls the
-    CLI makes (decode_file has no filter option): (decoder, RGBA8)."""
+    """decode_file with 4 workers, the restoration filters on or off:
+    (decoder, RGBA8)."""
     import j40_tpu_torch
-    from j40_tpu_torch.decode import Decoder
 
-    if not filters:
-        return j40_tpu_torch.decode_file(data, backend=backend, workers=4)
-    dec = Decoder(data, backend=backend, workers=4, apply_filters=True)
-    dec.decode_frame()
-    return dec, dec.render_rgba8()
+    return j40_tpu_torch.decode_file(data, backend=backend, workers=4, apply_filters=filters)
 
 
 def phase_main_path(name: str, data: bytes, want: set[str], filters: bool = False,
@@ -2106,8 +2105,17 @@ def phase_main_path(name: str, data: bytes, want: set[str], filters: bool = Fals
     """One config decoded on the card, held against the host plan; the
     launch counters are zeroed just before the decode and read just after.
     Under backend="device" the decode must also equal backend="torch"
-    exactly and take `lanes` sections on the HF kernels."""
+    exactly and take `lanes` sections on the HF kernels.
+
+    With the filters on a frame of several LF groups, the card filters the
+    whole frame and the host plan each LF group apart, mirrored at its
+    borders (ROADMAP C.3): the two are held within 1 level only at least
+    FILTER_REACH pixels from an LF-group border, the gap nearer the border
+    must be that of the host plan's mirroring (more than 1 level), and the
+    whole frame is held within 1 level of the sharded plan on one shard,
+    which filters the whole frame as the format does."""
     from j40_tpu_torch.ops import kernels as K
+    from j40_tpu_torch.parallel import sharded_decode as SD
 
     _, ref = _decode(data, "numpy", filters)
     if backend == "device":
@@ -2116,7 +2124,19 @@ def phase_main_path(name: str, data: bytes, want: set[str], filters: bool = Fals
     dec, rgba = _decode(data, backend, filters)
     launches = dict(K.launches)
     assert rgba.shape == ref.shape and rgba.dtype == np.uint8
-    diff = int(np.abs(rgba[:, :, :3].astype(np.int16) - ref[:, :, :3]).max())
+    d = np.abs(rgba[:, :, :3].astype(np.int16) - ref[:, :, :3]).max(-1)
+    seam = {}
+    if filters and dec.stats["num_lf_groups"] > 1:
+        dist = lf_border_distance(*d.shape)
+        diff = int(d[dist >= FILTER_REACH].max())
+        one = SD.decode_sharded(data, mesh=mesh_of(dec.device, 1), apply_filters=True)
+        seam = dict(host_plan_max_diff_near_borders=int(d[dist < FILTER_REACH].max()),
+                    one_shard_max_diff=int(np.abs(rgba[:, :, :3].astype(np.int16) - one).max()))
+        assert seam["host_plan_max_diff_near_borders"] > 1, \
+            f"{name}: the host plan's LF-group seam is gone: {seam}"
+        assert seam["one_shard_max_diff"] <= 1, f"{name}: against the sharded plan: {seam}"
+    else:
+        diff = int(d.max())
     assert diff <= 1, f"{name}: max|diff| {diff} vs the host plan"
     assert (rgba[:, :, 3] == 255).all()
     ran = {k for k, v in launches.items() if v}
@@ -2138,7 +2158,7 @@ def phase_main_path(name: str, data: bytes, want: set[str], filters: bool = Fals
         config=name, backend=backend, path=f"{name}/{backend}" + ("+filters" * filters),
         filters=filters, size=f"{rgba.shape[1]}x{rgba.shape[0]}",
         stream_bytes=len(data), lf_groups=dec.stats["num_lf_groups"],
-        launches=launches, max_abs_diff=diff, mpix_s=mpix(backend),
+        launches=launches, max_abs_diff=diff, **seam, mpix_s=mpix(backend),
         host_plan_mpix_s=mpix("numpy"),
         stages_s={k: dec.stats[k] for k in
                   ("headers_s", "sections_s", "reconstruct_s", "total_s")},
@@ -2156,7 +2176,8 @@ def phase_main_path(name: str, data: bytes, want: set[str], filters: bool = Fals
           f"{len(data)} B): {out['mpix_s']:.2f} Mpix/s on the card (median of "
           f"3){torch_rate}, host plan {out['host_plan_mpix_s']:.2f} Mpix/s, target_met "
           f"{out['target_met']}, launches "
-          f"{launches}, max|diff| {diff}, first decode stages {out['stages_s']}")
+          f"{launches}, max|diff| {diff}{''.join(f', {k} {v}' for k, v in seam.items())}, "
+          f"first decode stages {out['stages_s']}")
     return out
 
 

@@ -20,6 +20,8 @@ from .headers.icc import read_icc
 from .io.bits import BitReader
 from .limits import MAIN_LV5, Limits
 from .modular.decode import ModularImage
+from .native.loader import load_once
+from .profile import carry as carry_spans
 from .profile import clock, request_id, span
 from .streams import carry, own_stream
 
@@ -96,6 +98,7 @@ class Decoder:
                  streaming: bool = False, keep_device_output: bool = False,
                  device=None):
         check_backend(backend)
+        load_once()  # port: before any thread of this decode asks for it
         self.backend = backend
         #: port: the torch device of the reconstruction; None means CUDA,
         #: and raises where there is none (never a silent CPU run)
@@ -318,7 +321,7 @@ class Decoder:
                 # 2048x2048 region with its own entropy streams); the lazy
                 # dq-matrix/order materialization they trigger is serialized
                 # inside VarDCTState (j40.h:7694-7732 analog)
-                list(_pool().map(carry(_one_lf_group, self.device), lf_run))
+                list(_pool().map(carry(carry_spans(_one_lf_group), self.device), lf_run))
             else:
                 for s in lf_run:
                     _one_lf_group(s)
@@ -427,7 +430,8 @@ class Decoder:
                         state.vardct.dispatch_group_async(ggidx)
 
             if self.workers > 1 and len(run_chains) > 1:
-                list(_pool().map(carry(_one_group_chain, self.device), run_chains))
+                list(_pool().map(carry(carry_spans(_one_group_chain), self.device),
+                                 run_chains))
             else:
                 for chain in run_chains:
                     _one_group_chain(chain)
@@ -849,16 +853,18 @@ def _read_input(path_or_bytes) -> bytes:
 
 def decode_file(path_or_bytes, backend: str = "torch",
                 limits: Limits = MAIN_LV5, device=None,
-                workers: int = 1) -> tuple[Decoder, np.ndarray]:
+                workers: int = 1, apply_filters: bool = False) -> tuple[Decoder, np.ndarray]:
     """Decode to the final displayed frame (all frames are processed so the
     blending chain is honored; single-frame files behave as before).
 
-    port: `device` (default CUDA) and `workers` pass through to Decoder; on
-    a CUDA device the decode runs on the calling thread's own stream
-    (streams.own_stream), whose index the `request` span counts."""
+    port: `device` (default CUDA), `workers` and `apply_filters` (the
+    frame's restoration filters, off by default as in Decoder) pass through
+    to Decoder; on a CUDA device the decode runs on the calling thread's own
+    stream (streams.own_stream), whose index the `request` span counts."""
     data = _read_input(path_or_bytes)
     start = clock(cpu=True)
-    dec = Decoder(data, backend=backend, limits=limits, device=device, workers=workers)
+    dec = Decoder(data, backend=backend, limits=limits, device=device, workers=workers,
+                  apply_filters=apply_filters)
     with own_stream(dec.device) as stream, \
             span(dec.stats, "request", start=start, cpu=True, stream=stream):
         while not dec.done:
@@ -869,17 +875,18 @@ def decode_file(path_or_bytes, backend: str = "torch",
 
 
 def decode_animation(
-    path_or_bytes, backend: str = "torch", device=None
+    path_or_bytes, backend: str = "torch", device=None, apply_filters: bool = False
 ) -> tuple[Decoder, list[tuple[int, np.ndarray]]]:
     """Decode every displayed frame of an (animated) codestream.
 
     Returns (decoder, [(duration_ticks, rgba), ...]); frames with duration 0
     that are not last are compositing intermediates and are not emitted
     (spec §5.3).  Tick rate is `decoder.image.anim_tps_num / anim_tps_denom`.
-    On a CUDA device the decode runs as decode_file's does."""
+    On a CUDA device the decode runs as decode_file's does; `apply_filters`
+    as decode_file's."""
     data = _read_input(path_or_bytes)
     start = clock(cpu=True)
-    dec = Decoder(data, backend=backend, device=device)
+    dec = Decoder(data, backend=backend, device=device, apply_filters=apply_filters)
     frames: list[tuple[int, np.ndarray]] = []
     with own_stream(dec.device) as stream, \
             span(dec.stats, "request", start=start, cpu=True, stream=stream):

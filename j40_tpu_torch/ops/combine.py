@@ -8,13 +8,17 @@ device: an all-DCT8 LF group takes the fused kernel (kernels.
 reconstruct_dct8_full); a mixed group runs its dense 8x8 grid through the
 dequant+IDCT kernel, overlays each other class (`_mixed_xyb`), then the
 colour kernel.  With the restoration filters on, every group builds its
-XYB plane that second way (the fused kernel leaves no XYB plane to filter),
-then runs gaborish and EPF (ops/filter_kernels.py) before the colour
-kernel, as combine_jax does.  CUDA tensors reach the kernels, CPU tensors
-their plain versions.
+XYB plane that second way (the fused kernel leaves no XYB plane to filter).
+port: the decode then filters the whole frame (`filter_frame`): the
+groups' planes are put together into the frame's 8-padded plane, gaborish
+and EPF (ops/filter_kernels.py) run over it once, mirroring only at the
+frame's edges, then the colour kernel; combine_jax filters each group's
+plane apart, mirrored at every LF-group border (ROADMAP C.3).  CUDA
+tensors reach the kernels, CPU tensors their plain versions.
 
 The host half (`lf_group_inputs`) gathers one LF group's upload arrays in
-numpy; `to_device` makes tensors of them.
+numpy; `to_device` makes tensors of them (`gather_lf_group`: both, in a
+`vardct.gather` span).
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..mathutil import ceil_div
+from ..profile import span
 from ..streams import device_cache, shared
 from ..vardct import special
 from ..vardct.tables import DCT_SELECT, QM_SCALE
@@ -406,7 +412,7 @@ def lf_group_inputs(vs, gg, im) -> dict:
         cup, exc_idx, exc_val = _pack_i8(dense)
         out.update(kind="mixed" if bigs else "dct8", i8=cup, exc_idx=exc_idx,
                    exc_val=exc_val, aux=aux, weights=vs.dq_weights[p8], bigs=bigs)
-    if getattr(vs.fs, "apply_filters", False) and (f.gab_enabled or f.epf_iters > 0):
+    if frame_filters(vs):
         epf = epf_params(f) if f.epf_iters > 0 else None
         out["filters"] = dict(
             gab=f.gab_weights if f.gab_enabled else None, epf=epf,
@@ -442,26 +448,89 @@ def to_device(inputs: dict, device) -> dict:
     return out
 
 
-def reconstruct_inputs(d: dict):
-    """Run one LF group's reconstruction on the device tensors of
-    `to_device`: (3, 8*h8, 8*w8) uint8 (8 bpp) or int32 sRGB planes."""
-    filt = d.get("filters")
-    if d["kind"] == "dct8" and filt is None:
-        return kernels.reconstruct_dct8_full(
-            d["i8"], d["exc_idx"], d["exc_val"], d["aux"], d["weights"],
-            d["consts22"], d["h8"], d["w8"], d["to_u8"])
-    plane = _mixed_xyb(
+def xyb_plane(d: dict):
+    """One LF group's (3, 8*h8, 8*w8) float32 XYB plane from the device
+    tensors of `to_device`: the dense 8x8 grid, then each other class."""
+    return _mixed_xyb(
         d["i8"], d["exc_idx"], d["exc_val"], d["aux"], d["weights"],
         d["consts22"], tuple(b[1:] for b in d["bigs"]),
         tuple(b[0] for b in d["bigs"]), d["h8"], d["w8"])
-    if filt is not None:
-        # counterpart of combine_jax.py:553-558: the 8-padded plane is
-        # filtered, and cropped at the fetch
-        if filt["gab"] is not None:
-            plane = filter_kernels.gaborish(plane, filt["gab"])
-        if filt["epf"] is not None:
-            plane = filter_kernels.epf_device(plane, filt["rs8"], **filt["epf"])
-    return kernels.xyb_to_srgb(plane, d["consts22"], d["to_u8"])
+
+
+def reconstruct_inputs(d: dict):
+    """Run one LF group's unfiltered reconstruction on the device tensors
+    of `to_device`: (3, 8*h8, 8*w8) uint8 (8 bpp) or int32 sRGB planes (a
+    frame with restoration filters goes through `filter_frame`)."""
+    if d["kind"] == "dct8":
+        return kernels.reconstruct_dct8_full(
+            d["i8"], d["exc_idx"], d["exc_val"], d["aux"], d["weights"],
+            d["consts22"], d["h8"], d["w8"], d["to_u8"])
+    return kernels.xyb_to_srgb(xyb_plane(d), d["consts22"], d["to_u8"])
+
+
+def gather_lf_group(vs, gg, im, device) -> dict:
+    """One LF group's reconstruction inputs as tensors on `device`
+    (`lf_group_inputs`, then `to_device`), in a `vardct.gather` span that
+    counts the group's 8x8 cells and `big_cells`, those under varblocks
+    larger than DCT8."""
+    with span(None, "vardct.gather") as sp:
+        inp = lf_group_inputs(vs, gg, im)
+        sp.counts.update(cells=inp["h8"] * inp["w8"],
+                         big_cells=sum(b[1].shape[1] * b[1].shape[2] // 64
+                                       for b in inp["bigs"]))
+        return to_device(inp, device)
+
+
+def frame_filters(vs) -> bool:
+    """Whether the frame's reconstruction filters the whole frame: the
+    restoration filters are on and the frame has gaborish or EPF (then
+    `lf_group_inputs` gives a `filters` entry)."""
+    f = vs.fs.f
+    return bool(getattr(vs.fs, "apply_filters", False) and (f.gab_enabled or f.epf_iters > 0))
+
+
+def lf_group_xyb_async(vs, gg, im, device) -> dict:
+    """Dispatch one LF group's XYB plane for `filter_frame`, WITHOUT
+    fetching: {"plane": (3, 8*h8, 8*w8) float32, "rs8": its (h8, w8) EPF
+    sigmas or None, "consts22", "to_u8"}."""
+    d = gather_lf_group(vs, gg, im, device)
+    return dict(plane=xyb_plane(d), rs8=d["filters"]["rs8"], consts22=d["consts22"],
+                to_u8=d["to_u8"])
+
+
+def filter_frame(vs, groups: dict):
+    """The restoration filters over the whole frame, then the colour kernel.
+
+    `groups` maps every LF group's index to its `lf_group_xyb_async`.  The
+    groups' planes are put together into the frame's (3, 8*H8, 8*W8) plane
+    (an LF group is 2048 pixels a side but at the frame's right and bottom
+    edges, so the groups' 8-padded planes tile it), with their sigmas into
+    the frame's (H8, W8) ones; gaborish, then the EPF steps, run over it
+    once, mirroring at the frame's edges only, as the sharded plan
+    (ops/sharded_filters.py) filters a frame on one shard.  Returns the
+    (3, 8*H8, 8*W8) uint8 (8 bpp) or int32 sRGB planes, not fetched.  The
+    stage, from the assembly to the colour kernel's launch, is span
+    `filters`, which counts the EPF steps run (`epf_iters`)."""
+    f = vs.fs.f
+    epf = epf_params(f) if f.epf_iters > 0 else None
+    first = groups[min(groups)]
+    dev = first["plane"].device
+    H8, W8 = ceil_div(f.height, 8), ceil_div(f.width, 8)
+    with span(None, "filters", epf_iters=f.epf_iters if epf else 0):
+        frame = torch.empty((3, 8 * H8, 8 * W8), dtype=torch.float32, device=dev)
+        rs8 = torch.empty((H8, W8), dtype=torch.float32, device=dev) if epf else None
+        for ggidx, g in groups.items():
+            gg = vs.lf_groups[ggidx]
+            _, ph, pw = g["plane"].shape
+            frame[:, gg.top : gg.top + ph, gg.left : gg.left + pw] = g["plane"]
+            if epf:
+                rs8[gg.top // 8 : (gg.top + ph) // 8,
+                    gg.left // 8 : (gg.left + pw) // 8] = g["rs8"]
+        if f.gab_enabled:
+            frame = filter_kernels.gaborish(frame, f.gab_weights)
+        if epf:
+            frame = filter_kernels.epf_device(frame, rs8, **epf)
+        return kernels.xyb_to_srgb(frame, first["consts22"], first["to_u8"])
 
 
 def combine_lf_group_torch(vs, gg, im, device) -> np.ndarray:
@@ -477,5 +546,4 @@ def combine_lf_group_torch_async(vs, gg, im, device):
     """Dispatch one LF group's reconstruction; returns (device tensor, ggh,
     ggw) WITHOUT fetching — callers with several LF groups dispatch them all
     so the launches queue on the stream while the host goes on."""
-    inp = lf_group_inputs(vs, gg, im)
-    return reconstruct_inputs(to_device(inp, device)), inp["ggh"], inp["ggw"]
+    return reconstruct_inputs(gather_lf_group(vs, gg, im, device)), gg.height, gg.width

@@ -40,6 +40,7 @@ import torch
 from ..errors import check
 from ..io.bits import BitReader, ceil_lg
 from ..mathutil import ceil_div
+from ..profile import span
 from . import hf_kernels as HK
 from . import kernels
 from .device_modular import _check_lane_end
@@ -154,8 +155,10 @@ def try_device_hf_sections(dec, state, f, sections) -> list:
     out = []
     resident = 0
     for batch in hf_batches(lanes):
-        resident += _decode_hf_batch(dec, vd, spec, batch, orders_yxb,
-                                     resident_ok, full_cover, ctx_mode)
+        # a batch, from its packing to its last write-back
+        with span(None, "vardct.hf", lanes=len(batch)):
+            resident += _decode_hf_batch(dec, vd, spec, batch, orders_yxb,
+                                         resident_ok, full_cover, ctx_mode)
         out.extend(ln.section for ln in batch)
     stats = dec.stats.setdefault("device_vardct", {})
     stats["lanes"] = stats.get("lanes", 0) + len(lanes)

@@ -239,7 +239,7 @@ def epf_from_state(channels, vs, gg, is_modular: bool = False):
     the frame state (counterpart of epf_pallas_from_state).  The decode path
     splits the same two steps: ops/combine.lf_group_inputs gathers the
     sigmas with the same `epf_rs8` on the host, in the decode workers, and
-    reconstruct_inputs calls epf_device on the card."""
+    filter_frame calls epf_device on the card, over the whole frame."""
     f = vs.fs.f
     if f.epf_iters <= 0:
         return channels

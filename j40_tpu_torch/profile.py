@@ -11,15 +11,17 @@ its device records in, so spans lie over a trace's kernels and copies),
 the thread's CPU time inside it (`time.thread_time_ns()`) where the span
 asks for it with `cpu=True` (the root `request` and the copies, which a
 metric reads: a read of the thread's clock is a system call) and None
-elsewhere, and a small dict of integers or None.  A decode records on one
-thread.  A span's parent is the innermost span open on that thread for
-the same stats (-1: a root); a span takes its record's slot when it opens,
-so a parent's record comes before its children's.  `span(None, name)`
-records into the decode whose span is open on the thread, and records
-nothing where none is: the copy helpers `upload`, `fetch` and `scalar`
-open theirs so, and every blocking copy between host and device of a
-decode goes through them.  `dec.stats["request"]` is the decode's id, one
-a Decoder in the process.
+elsewhere, and a small dict of integers or None.  A span's parent is the
+innermost span open on its thread for the same stats (-1: a root); a span
+takes its record's slot when it opens, so a parent's record comes before
+its children's.  `span(None, name)` records into the decode whose span is
+open on the thread, and records nothing where none is: the copy helpers
+`upload`, `fetch` and `scalar` open theirs so, and every blocking copy
+between host and device of a decode goes through them.  A decode records
+on its own thread and on the pool threads it hands work to: `carry(fn)`
+runs `fn` on a worker as if inside the span open on the caller, so the
+spans `fn` opens there are that span's children.  `dec.stats["request"]`
+is the decode's id, one a Decoder in the process.
 
 Profiling (port: the counterpart of the JAX CLI's `jax.profiler.trace`):
 
@@ -45,6 +47,9 @@ SETTLE_KERNEL = "spin_kernel"
 
 _REQUESTS = itertools.count(1)
 _OPEN = threading.local()
+#: a record's slot is taken under it: pool threads append to one decode's
+#: records at once
+_SLOT = threading.Lock()
 
 
 def request_id() -> int:
@@ -92,8 +97,9 @@ class span:
             self.spans = stack[-1].spans
         if stack and stack[-1].spans is self.spans:
             self.parent = stack[-1].index
-        self.index = len(self.spans)
-        self.spans.append(None)
+        with _SLOT:
+            self.index = len(self.spans)
+            self.spans.append(None)
         stack.append(self)
         if self.start is None:
             self.start = clock(self.cpu)
@@ -114,6 +120,28 @@ class span:
         self.spans[self.index] = (self.name, self.parent, self.start_ns, end, cpu,
                                   self.counts or None)
         return False
+
+
+def carry(fn):
+    """`fn` for pool threads: the spans it opens there record into the
+    decode whose span is open on the calling thread now, as children of
+    that span; `fn` itself where none is open."""
+    stack = getattr(_OPEN, "stack", None)
+    if not stack:
+        return fn
+    top = stack[-1]  # a worker's stack holds it below its own spans
+
+    def in_span(*args):
+        mine = getattr(_OPEN, "stack", None)
+        if mine is None:
+            mine = _OPEN.stack = []
+        mine.append(top)
+        try:
+            return fn(*args)
+        finally:
+            mine.pop()
+
+    return in_span
 
 
 def upload(x, device):

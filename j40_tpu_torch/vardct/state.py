@@ -15,6 +15,7 @@ import numpy as np
 from ..errors import check
 from ..io.bits import BitReader, ceil_lg
 from ..mathutil import ceil_div, unpack_signed
+from ..profile import span  # port: the decode's spans
 from ..entropy.code import CodeSpec, CodeState, read_cluster_map, read_code_spec
 from ..headers.frame import read_permutation, apply_permutation
 from .dct import forward_dct2d_scaled_for_llf, inverse_dct2d
@@ -550,8 +551,13 @@ class VarDCTState:
         gw = min(f.width - (col << f.group_size_shift), f.group_size)
         gh = min(f.height - (row << f.group_size_shift), f.group_size)
 
-        ctxoff = 495 * self.nb_block_ctx * r.u(ceil_lg(self.num_hf_presets))
-        self._hf_coeffs(r, ctxoff, pass_, gx_in_gg, gy_in_gg, gw, gh, gg)
+        # port: a section decoded on the host is a `vardct.hf_host` span,
+        # which counts the varblocks whose corners lie in the group
+        corners = np.asarray(gg.blocks)[gy_in_gg >> 3 : (gy_in_gg + gh + 7) >> 3,
+                                        gx_in_gg >> 3 : (gx_in_gg + gw + 7) >> 3]
+        with span(None, "vardct.hf_host", varblocks=int(((corners >> 20) >= 2).sum())):
+            ctxoff = 495 * self.nb_block_ctx * r.u(ceil_lg(self.num_hf_presets))
+            self._hf_coeffs(r, ctxoff, pass_, gx_in_gg, gy_in_gg, gw, gh, gg)
 
     def _hf_coeffs_native(self, r, ctxoff, pass_, gx_in_gg, gy_in_gg, gw, gh,
                           gg: LfGroup) -> bool:
@@ -800,10 +806,15 @@ class VarDCTState:
         with self._dispatch_lock:
             if ggidx in self._predispatched or ggidx not in self.lf_groups:
                 return
-            # port: the torch combine on the decoder's device
-            from ..ops.combine import combine_lf_group_torch_async
+            # port: the torch combine on the decoder's device; with the
+            # whole-frame filters, the group's XYB plane (combine())
+            from ..ops.combine import (
+                combine_lf_group_torch_async, frame_filters, lf_group_xyb_async,
+            )
 
-            self._predispatched[ggidx] = combine_lf_group_torch_async(
+            dispatch = (lf_group_xyb_async if frame_filters(self)
+                        else combine_lf_group_torch_async)
+            self._predispatched[ggidx] = dispatch(
                 self, self.lf_groups[ggidx], self.fs.im, self.fs.device
             )
 
@@ -900,15 +911,30 @@ class VarDCTState:
             # (dispatch_group_async), overlapping entropy with device work
             import torch
 
-            from ..ops.combine import combine_lf_group_torch_async
+            from ..ops.combine import (
+                combine_lf_group_torch_async, filter_frame, frame_filters,
+                lf_group_xyb_async,
+            )
+            from ..profile import fetch
 
-            pending = []
+            whole = frame_filters(self)
+            dispatch = lf_group_xyb_async if whole else combine_lf_group_torch_async
+            done = {}
             for ggidx in sorted(self.lf_groups.keys()):
-                gg = self.lf_groups[ggidx]
                 res = self._predispatched.pop(ggidx, None)
-                if res is None:
-                    res = combine_lf_group_torch_async(self, gg, im, fs.device)
-                pending.append((gg, res))
+                done[ggidx] = res if res is not None else dispatch(
+                    self, self.lf_groups[ggidx], im, fs.device)
+            if whole:
+                # port: the restoration filters over the whole frame's plane
+                # (ops/combine.filter_frame), not each LF group's apart, so
+                # nothing mirrors at an LF-group border (ROADMAP C.3); the
+                # frame is then one plane at (0, 0)
+                from types import SimpleNamespace
+
+                pending = [(SimpleNamespace(top=0, left=0, height=f.height, width=f.width),
+                            (filter_frame(self, done), f.height, f.width))]
+            else:
+                pending = [(self.lf_groups[g], res) for g, res in done.items()]
             # the device path emits pre-clipped uint8 for 8bpp streams; keep
             # that dtype end to end (a 12MP int32 round-trip costs ~0.5s of
             # pure memcpy on this host) unless blending needs wider math
@@ -929,7 +955,7 @@ class VarDCTState:
                     for gg, (dev, ggh, ggw) in pending
                 ]
             for gg, (dev, ggh, ggw) in pending:
-                arr = dev[:, :ggh, :ggw].cpu().numpy()  # port: the fetch
+                arr = fetch(dev[:, :ggh, :ggw]).numpy()  # port: the fetch
                 dst_dtype = gmodular.channels[0].data.dtype
                 if arr.dtype == np.uint8 and dst_dtype != np.uint8:
                     arr = arr.astype(dst_dtype)

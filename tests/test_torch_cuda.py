@@ -1186,3 +1186,42 @@ def test_spans_hold_every_copy_on_the_trace_clock(cuda, name):
     tokens = [a for a, _, n in recs if "tokens_" in n and "setup" not in n]
     assert tokens and all(any(s - CLOCKS_NS <= a <= e + CLOCKS_NS for s, e in batches)
                           for a in tokens)
+
+
+def test_camera_photo_filtered_over_the_whole_frame_on_card(cuda):
+    """A 4096x3072 frame of the benchmark's configuration photo_d05e7 (cjxl
+    -d 0.5 -e 7's shape: mixed varblocks, gaborish, four LF groups) through
+    decode_file on the card's route: within 1 level of the same decode on
+    the CPU, and within the configuration's limits of the plain float64
+    reference (tools/photo_reference.py) on the rows and columns within 8
+    pixels of both LF-group borders, so no LF group was filtered apart."""
+    import json
+
+    from j40_tpu_torch.decode import decode_file
+    from jxlbench import spec
+    from jxlbench.frozen_vardct import vardct_enc as V
+    from jxlbench.images import camera
+
+    tools = str(Path(__file__).resolve().parents[1] / "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import photo_reference as R
+
+    cfg = json.loads((spec.PKG / "configs" / "photo_d05e7.json").read_text())
+    codec = spec.load_module(spec.PKG / "configs" / "photo_d05e7.py")
+    img = camera.make(3072, 4096, 2**31 + 2029, 0)
+    ch = codec.choose(img, cfg)
+    data = V.encode_choice(ch)
+    dec, got = decode_file(data, backend="device", device=cuda, workers=4, apply_filters=True)
+    assert dec.stats["num_lf_groups"] == 4
+    _, cpu = decode_file(data, backend="torch", device="cpu", workers=4, apply_filters=True)
+    assert int(np.abs(got.astype(np.int16) - cpu).max()) <= 1
+    ref = R.reconstruct(codec.inputs(ch), cuda)
+    got = torch.from_numpy(got).to(cuda)
+    near = torch.zeros((3072, 4096), dtype=torch.bool, device=cuda)
+    near[2040:2056, :] = True
+    near[:, 2040:2056] = True
+    nums = codec.compare(got[near][None], ref[near][None])
+    assert all(nums[k] <= lim for k, lim in cfg["limits"].items()), nums
+    whole = codec.compare(got, ref)
+    assert all(whole[k] <= lim for k, lim in cfg["limits"].items()), whole

@@ -5,12 +5,17 @@ kernel site takes its plain version) against `j40_tpu`'s
 (`backend="numpy"`, native C++ filters) of both packages.
 
 The port follows the JAX package's device plan (combine_jax.py:553-578):
-it filters the 8-padded LF-group plane, then crops.  The host plan filters
-the cropped plane.  On images whose sides are not multiples of 8 the two
+it filters the 8-padded plane, then crops.  The host plan filters the
+cropped plane.  On images whose sides are not multiples of 8 the two
 plans disagree near the ragged bottom and right edges, by far more than a
 gray level (the filters move pixels by up to ~200 levels at these
 settings); that gap lies in the reference package itself and is asserted
-here as a known one (ROADMAP C).
+here as a known one (ROADMAP C).  The port filters the whole frame's
+plane, where the JAX package and both host plans filter each LF group's
+apart, mirrored at its borders: on a frame of several LF groups they
+disagree next to a border between LF groups, and agree away from it
+(ROADMAP C.3; tests/test_torch_photo_reference.py holds the port against
+the format there).
 
 Tolerance: 1 gray level at the stream's own depth, the bar the JAX
 package holds against the reference: fp32 sums in another order may tip a
@@ -78,6 +83,11 @@ STREAMS = {
 }
 RAGGED = [n for n in STREAMS if "ragged" in n]
 ALIGNED = [n for n in STREAMS if n not in RAGGED]
+#: streams of several LF groups: the columns of their borders
+SEAMS = {"mixed_two_lf_groups": [2048]}
+#: how far a difference at an LF-group border reaches: gaborish 1 pixel,
+#: then the EPF steps 3 + 2 + 1
+SEAM_REACH = 7
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,23 +114,33 @@ def _max_diff(a, b) -> int:
     return int(np.abs(a - b).max())
 
 
+def _agrees(name, got, other) -> None:
+    """Within 1 level; on a stream of several LF groups, within 1 level
+    away from its borders, and off by more at them (the known gap, C.3)."""
+    if name not in SEAMS:
+        assert _max_diff(got, other) <= 1
+        return
+    far = np.ones(got.shape[2], bool)
+    for x in SEAMS[name]:
+        far[x - SEAM_REACH : x + SEAM_REACH] = False
+    assert _max_diff(got[:, :, far], other[:, :, far]) <= 1
+    assert _max_diff(got, other) > 1
+
+
 @pytest.mark.parametrize("name", list(STREAMS))
 def test_filtered_decode_matches_jax(name):
     TK.reset_launches()
     got = _port(name)
     # on the CPU every kernel site takes its plain version: nothing launches
     assert not any(TK.launches.values()), TK.launches
-    assert _max_diff(got, _pixels(JDecoder, name, backend="jax",
-                                  apply_filters=True)) <= 1
+    _agrees(name, got, _pixels(JDecoder, name, backend="jax", apply_filters=True))
 
 
 @pytest.mark.parametrize("name", ALIGNED)
 def test_filtered_decode_matches_host_plan(name):
     got = _port(name)
-    assert _max_diff(got, _pixels(TDecoder, name, backend="numpy",
-                                  apply_filters=True)) <= 1
-    assert _max_diff(got, _pixels(JDecoder, name, backend="numpy",
-                                  apply_filters=True)) <= 1
+    _agrees(name, got, _pixels(TDecoder, name, backend="numpy", apply_filters=True))
+    _agrees(name, got, _pixels(JDecoder, name, backend="numpy", apply_filters=True))
 
 
 @pytest.mark.parametrize("name", RAGGED)

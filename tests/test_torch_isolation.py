@@ -137,7 +137,8 @@ def _imports(path: Path):
     "path",
     sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                   ROOT / "examples" / "serve_device_torch.py",
-                                  ROOT / "tools" / "squeeze_model.py"],
+                                  ROOT / "tools" / "squeeze_model.py",
+                                  ROOT / "tools" / "photo_reference.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_forbidden_imports(path):

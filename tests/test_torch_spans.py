@@ -206,3 +206,40 @@ def test_concurrent_decodes_keep_their_own_spans():
     for d in out.values():
         spans = d.stats["spans"]
         assert None not in spans and [(s[NAME], s[PARENT]) for s in spans] == want
+
+
+def test_carried_spans_from_many_threads_keep_their_slots():
+    """Pool threads that record into one decode (`profile.carry`), more of
+    them than cores and switching often: every span gets a slot of its
+    own, closes in it, and is a child of the span open on the caller."""
+    import os
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+
+    stats: dict = {}
+    n, each = 2 * (os.cpu_count() or 4), 300
+
+    def work(k):
+        for i in range(each):
+            with P.span(None, "work", k=k, i=i):
+                pass
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with P.span(stats, "request"), P.span(None, "sections") as sections:
+            with ThreadPoolExecutor(n) as ex:
+                futures = [ex.submit(P.carry(work), k) for k in range(n)]
+                for f in futures:
+                    f.result(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    spans = stats["spans"]
+    assert len(spans) == 2 + n * each and None not in spans
+    work_spans = [s for s in spans if s[NAME] == "work"]
+    assert {s[PARENT] for s in work_spans} == {sections.index}
+    assert sorted((s[COUNTS]["k"], s[COUNTS]["i"]) for s in work_spans) == \
+        [(k, i) for k in range(n) for i in range(each)]
+    # a thread with nothing carried records nothing
+    ThreadPoolExecutor(1).submit(work, 0).result(timeout=60)
+    assert len(stats["spans"]) == 2 + n * each
