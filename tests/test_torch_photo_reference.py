@@ -9,8 +9,8 @@ everywhere, the seam too (the restoration filters run over the whole
 frame, not each LF group apart); each of the configuration's three
 controls outside them; the same pixels as the sharded plan on one shard;
 `decode_file` without `apply_filters` as before; and the VarDCT route's
-spans (`vardct.hf`, `vardct.hf_host`, `vardct.gather`, `filters`, the
-fetch) in the decode's tree, on the pool's threads too, with their counts.
+spans (`vardct.lf_group`, `vardct.hf`, `vardct.hf_host`, `vardct.gather`,
+`filters`, the fetch) in the decode's tree, on the pool's threads too, with their counts.
 On the CPU every kernel site takes its plain version.
 """
 
@@ -30,6 +30,7 @@ sys.path.insert(0, str(ROOT / "tools"))
 import photo_reference as R  # noqa: E402
 
 from j40_tpu_torch.decode import Decoder, decode_file  # noqa: E402
+from j40_tpu_torch.vardct.tables import DCT_SELECT  # noqa: E402
 from jxlbench import spec  # noqa: E402
 from jxlbench.images import camera  # noqa: E402
 
@@ -215,6 +216,13 @@ def test_spans_on_pool_threads(monkeypatch):
     assert len(host) == 8 and all(ancestors(s) == ["sections", "request"] for s in host)
     # every varblock of the frame: the host's sections' and the lane's DCT8 cells
     assert sum(s[COUNTS]["varblocks"] for s in host) + 8 == len(ch.placements)
+    # one LF-group span a group on the pool, its varblocks, and the LLF of
+    # every varblock larger than DCT8 from the batched fill
+    lf = named("vardct.lf_group")
+    assert len(lf) == 2 and all(ancestors(s) == ["sections", "request"] for s in lf)
+    assert sum(s[COUNTS]["varblocks"] for s in lf) == len(ch.placements)
+    large = sum(DCT_SELECT[sel][:2] != (3, 3) for _, _, sel in ch.placements)
+    assert large > 0 and sum(s[COUNTS]["llf_blocks"] for s in lf) == large
     gathers = named("vardct.gather")
     assert len(gathers) == 2
     assert sorted(s[COUNTS]["cells"] for s in gathers) == [8 * 1, 8 * 256]
